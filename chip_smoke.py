@@ -11,24 +11,31 @@ PyTorch built for CUDA. In order:
 2. holds each kernel against its plain PyTorch version on the card:
    K1 (attention) at B=2, H=4, T in {128, 1000, 1024}, D=64 with a ragged 0/1
    bias, K2 (MRF step) at every (C, k, d) of the generator at a T that is no
-   multiple of a tile, both in float32 and bf16;
-3. serves through `TTSEngine` at full width (MatchaConfig() and HiFi-GAN v1,
-   random weights from `--seed`, bf16, int16 output): 4 texts with per-request
-   seeds, then one `synthesise_lowlatency` at the 1024-frame budget, with the
-   launch counts set to 0 just before and read just after;
-4. holds the port on the card against itself on the CPU (float32, TF32 off,
-   the same weights and noise) and against the frozen reference outputs of
+   multiple of a tile, both in float32 and bf16; K3a and K3b (MAS) bit-equal
+   at B=16, Tx in {1, 45, 64, 256}, Ty in {45, 448, 1024}; K4 (attention
+   backward, dbias included) in float32 and bf16 at the shapes of K1;
+3. the serving path: `TTSEngine` at full width (MatchaConfig() and HiFi-GAN
+   v1, random weights from `--seed`, bf16, int16 output), 4 texts with
+   per-request seeds, then one `synthesise_lowlatency` at the 1024-frame
+   budget, with the launch counts set to 0 just before and read just after;
+4. the training path: `Trainer.fit` at full width on 64 synthetic items
+   (batch 16: 4 micro-steps, 2 updates and a validation batch an epoch), one
+   epoch in fp32, one in bf16, then the bf16 run resumed for a second, with
+   the launch counts set to 0 just before and read just after;
+5. holds the port on the card against itself on the CPU in float32 with TF32
+   off (one served text; one training forward and backward, losses and
+   gradients) and against the frozen reference outputs of
    `tests/fixtures/golden_e2e*.npz`;
-5. at every shape the main path gave each kernel (both requests, bf16), holds
-   the kernel against its plain version and times the kernel, its plain
-   version and the matching PyTorch call, beside the least time the card
-   could take.
+6. at every shape each path gave each kernel, holds the kernel against its
+   plain version and times the kernel, its plain version and the matching
+   PyTorch call, beside the least time the card could take; times training
+   micro-steps at batch 16 and profiles one in each precision.
 
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed phase raises and the script exits non-zero; so does a machine with
 no CUDA card or a directory without the package. Details (every check,
-the profile and each kernel's per-shape times) go to `--out`, by default
+the profiles and each kernel's per-shape times) go to `--out`, by default
 build/chip_smoke.json.
 """
 
@@ -37,6 +44,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,8 +54,11 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, float32 rate outside
+# the tensor cores, and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float32: PEAK_F32_FLOPS}
 PEAK_BYTES = 3.35e12
 
 # tolerances of a kernel against its plain version on the same inputs
@@ -58,6 +69,17 @@ PEAK_BYTES = 3.35e12
 # lrelu(x) and z to bf16 for the tensor cores where the plain version keeps f32.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 TOL_MRF_F32 = (1e-4, 1e-4)  # up to C*k = 2816 products summed per output
+# K4 against its plain version, max |kernel - plain| over max |plain| per gradient:
+# float32 takes the JAX package's bar for its fused backward; in bf16 both
+# versions round p and ds at the same places, so what differs is summation
+# order and the rounding of the outputs (2^-9 of the largest)
+TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+# card vs CPU, float32 with TF32 off, one training step: the loss bars of
+# tests/test_loss_parity.py (duration, prior, flow matching, relative), and
+# the gradients' error over their max |grad| (sums in other orders through
+# the whole backward)
+TOL_LOSS = {"dur_loss": 2e-4, "prior_loss": 2e-4, "diff_loss": 2e-3}
+TOL_GRAD = 1e-3
 # card vs CPU, float32 end to end: the mel and mu_y bars of
 # tests/test_golden_e2e.py; the waveform, bounded by tanh, takes the mel's
 TOL_MEL, TOL_MU, TOL_WAV = 1e-3, 5e-4, 1e-3
@@ -149,6 +171,22 @@ def cuda_ms(fn, reps, sleep_cycles=50_000_000):
     return marks[1].elapsed_time(marks[2]) / reps
 
 
+def events_ms(fn, reps):
+    """Mean time of `fn` in ms by CUDA events around `reps` calls, with no spin
+    ahead of them: for a function of thousands of small launches (the plain
+    MAS, ~15 a mel frame), which fill the card's launch queue behind any spin,
+    so that its time is the host's launch rate, as it is in use."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # ---------------------------------------------------------------- phase 2
 def attention_inputs(b, h, t, d, dtype, dev, gen, lengths=None, frames=None):
     """q, k, v (b, h, t, d) and a 0/1 key bias with keys [0, lengths[i]) of row
@@ -205,6 +243,96 @@ def check_kernels(dev, seed):
                                                       f"K2 {name} C={c} k={k} d={d}"))
         errs["mrf_step"][name] = {"max_abs_err": worst, "atol": atol, "rtol": rtol}
         log(f"K2 mrf_step {name}: max abs err {worst:.3g} (tolerance atol {atol} rtol {rtol})")
+    return errs
+
+
+def mas_inputs(b, tx, ty, dev, gen, full_first=True):
+    """(B, Tx, Ty) scores and a mask of random lengths with t_x <= t_y; the first
+    utterance at the caps (t_x = min(Tx, Ty), t_y = Ty)."""
+    value = torch.randn((b, tx, ty), generator=gen, device=dev)
+    t_x = torch.randint(1, min(tx, ty) + 1, (b,), generator=gen, device=dev)
+    t_y = torch.maximum(torch.randint(1, ty + 1, (b,), generator=gen, device=dev), t_x)
+    if full_first:
+        t_x[0], t_y[0] = min(tx, ty), ty
+    mask = ((torch.arange(tx, device=dev)[None, :, None] < t_x[:, None, None])
+            & (torch.arange(ty, device=dev)[None, None, :] < t_y[:, None, None])).float()
+    return value, mask, t_x.to(torch.int32), t_y.to(torch.int32)
+
+
+def check_mas(value, mask, t_x, t_y, what):
+    """K3a's bits and K3b's path bit-equal to the plain version's on the same scores."""
+    from matcha_tpu_torch.ops import mas
+
+    tx = value.shape[1]
+    score = (value * mask).transpose(1, 2).contiguous()
+    bits = mas.mas_forward_plain(score, t_x, t_y)
+    got = mas.unpack_words(mas.mas_forward(score, t_x, t_y), tx)
+    frames = torch.arange(score.shape[1], device=score.device)[None, :, None] < t_y[:, None, None]
+    if not torch.equal(got & frames, bits & frames):
+        raise AssertionError(f"K3a {what}: take-diagonal bits differ from the plain version")
+    want = mas.mas_backtrack_plain(bits, t_x, t_y)
+    if not torch.equal(mas.mas_backtrack(mas.pack_words(bits), t_x, t_y, tx), want):
+        raise AssertionError(f"K3b {what}: path differs from the plain version")
+    if not torch.equal(mas.maximum_path(value, mask, t_x, t_y), want * mask):
+        raise AssertionError(f"K3a+K3b {what}: maximum_path differs from the plain version")
+    return want
+
+
+def grad_err(got, want, what, tol):
+    """(max |got - want| / max |want|, max |got - want|) over the pieces; raises
+    when the first is over `tol`."""
+    worst, worst_abs = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what} {name}: non-finite output")
+        diff = float((g - w).abs().max())
+        err = diff / max(float(w.abs().max()), 1e-30)
+        if err > tol:
+            raise AssertionError(f"{what} {name}: error {err:.3g} of max |grad| over {tol}")
+        worst, worst_abs = max(worst, err), max(worst_abs, diff)
+    return worst, worst_abs
+
+
+def check_training_kernels(dev, seed):
+    """K3a and K3b bit-equal to their plain version at B = 16, Tx in {1, 45, 64,
+    256}, Ty in {45, 448, 1024}; K4 in f32 and bf16 against its plain version at
+    B = 2, H = 4, T in {128, 1000, 1024}, ragged bias (dbias too) and none."""
+    from matcha_tpu_torch.ops.attention import attention_bwd_cuda, attention_bwd_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    errs = {"mas_forward": {}, "mas_backtrack": {}, "attention_bwd": {}}
+    n = 0
+    for tx in (1, 45, 64, 256):
+        for ty in (45, 448, 1024):
+            check_mas(*mas_inputs(16, tx, ty, dev, gen), f"B=16 Tx={tx} Ty={ty}")
+            n += 1
+    torch.cuda.synchronize()
+    for name in ("mas_forward", "mas_backtrack"):
+        errs[name]["bit_equal"] = {"max_abs_err": 0.0, "shapes": n}
+    log(f"K3a, K3b: bit-equal to the plain version at {n} shapes (B=16, Tx in 1/45/64/256, "
+        f"Ty in 45/448/1024)")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = TOL_BWD[name]
+        worst, worst_abs = 0.0, 0.0
+        for t in (128, 1000, 1024):
+            q, k, v, bias = attention_inputs(2, 4, t, 64, dtype, dev, gen)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            for bb in (bias, None):
+                got = attention_bwd_cuda(q, k, v, bb, do, 0.125, bb is not None)
+                torch.cuda.synchronize()
+                want = attention_bwd_plain(q, k, v, bb, do, 0.125)
+                if bb is None:
+                    want = want[:3] + (None,)
+                rel, diff = grad_err(got, want, f"K4 {name} T={t} bias="
+                                     f"{'ragged' if bb is not None else 'none'}", tol)
+                worst, worst_abs = max(worst, rel), max(worst_abs, diff)
+        errs["attention_bwd"][name] = {"max_err_of_max_grad": worst, "max_abs_err": worst_abs,
+                                       "tol": tol}
+        log(f"K4 attention_bwd {name}: max error {worst:.3g} of max |grad| (tolerance {tol})")
     return errs
 
 
@@ -289,11 +417,15 @@ def serve_main_path(dev, mcfg, hcfg, seed):
 
 # (group, substring of the kernel's name), first match wins
 KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
+                 ("K3a mas_forward", "mas_forward"), ("K3b mas_backtrack", "mas_backtrack"),
+                 ("K4 attention_bwd", "dkdv_"), ("K4 attention_bwd", "stats_"),
+                 ("K4 attention_bwd", "dq_"),
                  ("convolution", "conv"),
                  ("convolution", "fprop"), ("convolution", "dgrad"),
                  ("convolution", "nchwtonhwc"), ("convolution", "nhwctonchw"),
                  ("matmul", "gemm"), ("matmul", "gemv"), ("normalization", "moments"),
-                 ("normalization", "norm"), ("elementwise", "elementwise"))
+                 ("normalization", "norm"), ("elementwise", "elementwise"),
+                 ("reduction", "reduce"))
 
 
 def profile_request(call):
@@ -402,6 +534,300 @@ def golden_on_card(dev):
     return res
 
 
+# ---------------------------------------------------------------- training path
+TRAIN_ITEMS, VAL_ITEMS = 64, 8  # 4 micro-steps (2 updates) and 1 validation batch an epoch
+TRAIN_RUNS = (("fp32", 1), ("bf16", 1), ("bf16", 2))  # the last resumes the second
+
+
+def training_data(mcfg):
+    from matcha_tpu_torch.data.dataset import DataConfig, SyntheticDataset
+
+    return (SyntheticDataset(n_items=TRAIN_ITEMS, n_mels=mcfg.n_feats, seed=0),
+            SyntheticDataset(n_items=VAL_ITEMS, n_mels=mcfg.n_feats, seed=1), DataConfig())
+
+
+def launch_counters():
+    from matcha_tpu_torch.ops import mas
+    from matcha_tpu_torch.ops.attention import attention, attention_backward
+    from matcha_tpu_torch.ops.mrf import mrf_step
+
+    return {"attention_fwd": attention, "mrf_step": mrf_step, "mas_forward": mas.mas_forward,
+            "mas_backtrack": mas.mas_backtrack, "attention_bwd": attention_backward}
+
+
+def read_metrics(ckpt_dir):
+    rows = [json.loads(line) for line in
+            (Path(ckpt_dir) / "logs" / "metrics.jsonl").read_text().splitlines()]
+    return ([r for r in rows if "train/loss" in r], [r for r in rows if "val/loss" in r])
+
+
+def train_main_path(dev, mcfg, seed, root):
+    """`Trainer.fit` at full width on 64 synthetic items: one epoch in fp32, one in
+    bf16, then the bf16 run resumed for a second epoch. The launch counts are
+    set to 0 just before and read just after, and must be as derived: per
+    micro-step K3a 1, K3b 1, K1 6 and K4 18 (6 backward calls of 3 launches),
+    per validation batch K3a 1, K3b 1, K1 6."""
+    from matcha_tpu_torch.data.dataset import num_batches
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    train_ds, val_ds, dcfg = training_data(mcfg)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = []
+    for precision, epochs in TRAIN_RUNS:
+        ckpt = root / precision
+        trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(ckpt), log_every=1, seed=seed,
+                                            precision=precision), dcfg, device=dev)
+        t0 = time.perf_counter()
+        step = trainer.fit(train_ds, val_ds, max_epochs=epochs)
+        torch.cuda.synchronize()
+        train_rows, val_rows = read_metrics(ckpt)
+        runs.append({"precision": precision, "epochs": epochs, "step": step,
+                     "updates": trainer.optimizer.count, "wall_s": time.perf_counter() - t0,
+                     "checkpoints": [e["step"] for e in trainer.checkpoints.entries],
+                     "train": [{k: r[k] for k in r if k.startswith("train/")} for r in train_rows],
+                     "val": [{k: r[k] for k in r if k.startswith("val/")} for r in val_rows]})
+    counts = {name: fn.launches for name, fn in counters.items() if name != "mrf_step"}
+
+    micro = num_batches(TRAIN_ITEMS, dcfg)
+    val_batches = num_batches(VAL_ITEMS, dcfg, drop_last=False)
+    epochs = len(TRAIN_RUNS)  # each run trains one epoch (the third resumes at epoch 1)
+    n_attn = sum(n for n, _ in attention_shapes(mcfg.decoder, 1))
+    want = {"mas_forward": epochs * (micro + val_batches),
+            "mas_backtrack": epochs * (micro + val_batches),
+            "attention_fwd": epochs * (micro + val_batches) * n_attn,
+            "attention_bwd": epochs * micro * n_attn * 3}
+    log(f"training path launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"training kernel launches {counts}, expected {want}")
+    for r in runs:
+        log(f"fit {r['precision']} to epoch {r['epochs']}: step {r['step']}, {r['updates']} "
+            f"updates, {r['wall_s']:.1f} s, checkpoints {r['checkpoints']}, train loss "
+            f"{[round(t['train/loss'], 4) for t in r['train']]}, val loss "
+            f"{[round(v['val/loss'], 4) for v in r['val']]}")
+        losses = [t[k] for t in r["train"] for k in t] + [v[k] for v in r["val"] for k in v]
+        if not (r["train"] and r["val"] and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"fit {r['precision']}: missing or non-finite metrics")
+    resumed = runs[2]
+    if (runs[0]["step"], runs[1]["step"], resumed["step"]) != (micro, micro, 2 * micro) \
+            or resumed["updates"] != 2 * micro // 2 or resumed["checkpoints"] != [micro, 2 * micro]:
+        raise AssertionError(f"steps, updates or checkpoints of the runs: {runs}")
+    return {"runs": runs, "launches": counts, "micro_steps_an_epoch": micro,
+            "val_batches_an_epoch": val_batches}
+
+
+def training_batches(mcfg):
+    """(kind, precision, batch) of every batch the training path ran, in order."""
+    from matcha_tpu_torch.data.dataset import batch_iterator
+
+    train_ds, val_ds, dcfg = training_data(mcfg)
+    out = []
+    for (precision, epochs), epoch in zip(TRAIN_RUNS, (0, 0, 1)):
+        out += [("train", precision, b) for b in batch_iterator(train_ds, dcfg, epoch=epoch)]
+        out += [("val", "fp32", b) for b in batch_iterator(val_ds, dcfg, epoch=0, shuffle=False,
+                                                           drop_last=False)]
+    return out
+
+
+def mask_rows(y_lengths, frames, dev):
+    return torch.arange(frames, device=dev)[None, :] < y_lengths.to(dev)[:, None]
+
+
+def time_training_kernels(dev, mcfg, seed, batches, reps=20):
+    """At every shape the training path gave K1, K3a, K3b and K4: the kernel
+    against its plain version, then kernel, plain and library times and the
+    bound. Inputs are random at the path's shapes and lengths (a MAS's time
+    does not depend on its scores)."""
+    from matcha_tpu_torch.ops import mas
+    from matcha_tpu_torch.ops.attention import (attention_bwd_cuda, attention_bwd_plain,
+                                                attention_cuda, attention_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    dcfg = mcfg.decoder
+    h, d = dcfg.num_heads, dcfg.attention_head_dim
+    scale = d ** -0.5
+    groups = {}  # (kernel, key) -> count of calls
+    for kind, precision, b in batches:
+        tx, ty = b["x"].shape[1], b["y"].shape[1]
+        lengths = (tuple(b["x_lengths"].tolist()), tuple(b["y_lengths"].tolist()))
+        groups[("mas", (tx, ty) + lengths)] = groups.get(("mas", (tx, ty) + lengths), 0) + 1
+        dtype = "bfloat16" if (kind == "train" and precision == "bf16") else "float32"
+        for n, t in attention_shapes(dcfg, ty):
+            key = (dtype, t, ty, lengths[1])
+            groups[("fwd", key)] = groups.get(("fwd", key), 0) + n
+            if kind == "train":
+                groups[("bwd", key)] = groups.get(("bwd", key), 0) + n
+    rows = {"attention_fwd": [], "mas_forward": [], "mas_backtrack": [], "attention_bwd": []}
+    for (kind, key), count in groups.items():
+        if kind == "mas":
+            tx, ty, t_x, t_y = key[0], key[1], key[2], key[3]
+            b = len(t_x)
+            t_x = torch.tensor(t_x, device=dev, dtype=torch.int32)
+            t_y = torch.tensor(t_y, device=dev, dtype=torch.int32)
+            value = -1000.0 + 30.0 * torch.randn((b, tx, ty), generator=gen, device=dev)
+            mask = ((torch.arange(tx, device=dev)[None, :, None] < t_x[:, None, None])
+                    & mask_rows(t_y, ty, dev)[:, None, :]).float()
+            check_mas(value, mask, t_x, t_y, f"training batch Tx={tx} Ty={ty}")
+            score = (value * mask).transpose(1, 2).contiguous()
+            words = mas.mas_forward(score, t_x, t_y)
+            bits = mas.mas_forward_plain(score, t_x, t_y)
+            n_words, frames = (tx + 31) // 32, int(torch.clamp(t_y, max=ty).sum())
+            shape = [b, tx, ty]
+            common = {"path": "train", "dtype": "float32", "peak_flops": PEAK_F32_FLOPS,
+                      "shape": shape, "count": count, "launches": count, "max_abs_err": 0.0,
+                      "flops": 0, "library_ms": None, "chain_frames": int(t_y.max())}
+            rows["mas_forward"].append(dict(
+                common, bytes=frames * (tx + n_words) * 4 + 2 * b * 4,
+                ms=cuda_ms(lambda: mas.mas_forward(score, t_x, t_y), reps),
+                plain_ms=events_ms(lambda: mas.mas_forward_plain(score, t_x, t_y), 3)))
+            rows["mas_backtrack"].append(dict(
+                common, bytes=frames * n_words * 4 + b * tx * ty * 4 + 2 * b * 4,
+                ms=cuda_ms(lambda: mas.mas_backtrack(words, t_x, t_y, tx), reps),
+                plain_ms=events_ms(lambda: mas.mas_backtrack_plain(bits, t_x, t_y), 3)))
+            continue
+        dtype_name, t, frames, y_lengths = key
+        dtype = getattr(torch, dtype_name)
+        bsz, elt = len(y_lengths), 2 if dtype == torch.bfloat16 else 4
+        q, k, v, bias = attention_inputs(bsz, h, t, d, dtype, dev, gen, list(y_lengths), frames)
+        common = {"path": "train", "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype],
+                  "shape": [bsz, h, t, d], "count": count}
+        if kind == "fwd":
+            atol, rtol = TOL[dtype_name]
+            err = max_err_within(attention_cuda(q, k, v, bias, scale),
+                                 attention_plain(q, k, v, bias, scale), atol, rtol,
+                                 f"K1 {dtype_name} training {[bsz, h, t, d]}")
+            mask = bias[:, None, None, :]
+            rows["attention_fwd"].append(dict(
+                common, launches=count, max_abs_err=err,
+                flops=4 * bsz * h * t * t * d, bytes=4 * bsz * h * t * d * elt + bsz * t * elt,
+                ms=cuda_ms(lambda: attention_cuda(q, k, v, bias, scale), reps),
+                plain_ms=cuda_ms(lambda: attention_plain(q, k, v, bias, scale), reps),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale), reps)))
+        else:
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            rel, diff = grad_err(attention_bwd_cuda(q, k, v, bias, do, scale, False),
+                                 attention_bwd_plain(q, k, v, bias, do, scale)[:3] + (None,),
+                                 f"K4 {dtype_name} training {[bsz, h, t, d]}", TOL_BWD[dtype_name])
+            leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=bias[:, None, None, :],
+                                                 scale=scale)
+            rows["attention_bwd"].append(dict(
+                common, launches=3 * count, max_abs_err=diff, max_err_of_max_grad=rel,
+                flops=10 * bsz * h * t * t * d,
+                bytes=7 * bsz * h * t * d * elt + bsz * t * elt,
+                ms=cuda_ms(lambda: attention_bwd_cuda(q, k, v, bias, do, scale, False), reps),
+                plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, bias, do, scale), reps),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                               retain_graph=True), reps)))
+    log_rows(rows)
+    return rows
+
+
+def train_card_vs_cpu(dev, mcfg, seed):
+    """One full-width `compute_losses` plus backward at b = 2 (Tx = 10, Ty = 24)
+    in float32 on the card and on the CPU: same weights, injected (t, z),
+    dropout off. Paths must be equal, losses and gradients within their bars."""
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+
+    sd = module_weights(MatchaTTS(mcfg), seed, {DURATION_BIAS: 0.3})
+    rng = np.random.default_rng(seed + 11)
+    b, tx, ty, f = 2, 10, 24, mcfg.n_feats
+    inputs = {"x": torch.from_numpy(rng.integers(3, 140, (b, tx))),
+              "x_lengths": torch.tensor([10, 7]),
+              "y": torch.from_numpy(rng.standard_normal((b, ty, f)).astype(np.float32)),
+              "y_lengths": torch.tensor([24, 18]),
+              "t": torch.tensor([0.35, 0.8]),
+              "z": torch.from_numpy(rng.standard_normal((b, ty, f)).astype(np.float32))}
+    outs = {}
+    for where in (torch.device("cpu"), dev):
+        model = MatchaTTS(mcfg).eval().to(where)
+        model.load_state_dict(sd)
+        a = {k: v.to(where) for k, v in inputs.items()}
+        out = model.compute_losses(a["x"], a["x_lengths"], a["y"], a["y_lengths"],
+                                   t=a["t"], z=a["z"])
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(out["dur_loss"] + out["prior_loss"] + out["diff_loss"],
+                                    list(model.parameters()), allow_unused=True)
+        outs[where.type] = {"losses": {k: float(out[k].detach()) for k in TOL_LOSS},
+                            "attn": out["attn"].cpu(),
+                            "grads": {n: None if g is None else g.cpu()
+                                      for n, g in zip(names, grads)}}
+    cpu, card = outs["cpu"], outs[dev.type]
+    if not torch.equal(cpu["attn"], card["attn"]):
+        raise AssertionError("card and CPU MAS paths differ (a near-tie of the log-prior "
+                             "flipped: the kernels themselves are checked on equal scores)")
+    res = {"losses": {}, "tolerance": {"losses_rtol": TOL_LOSS, "grad": TOL_GRAD}}
+    for k, tol in TOL_LOSS.items():
+        rel = abs(card["losses"][k] - cpu["losses"][k]) / abs(cpu["losses"][k])
+        if rel > tol:
+            raise AssertionError(f"{k}: card {card['losses'][k]} CPU {cpu['losses'][k]} "
+                                 f"(relative {rel:.3g} over {tol})")
+        res["losses"][k] = {"card": card["losses"][k], "cpu": cpu["losses"][k], "rel_err": rel}
+    worst, worst_name = 0.0, None
+    for n, g in cpu["grads"].items():
+        if g is None:
+            continue
+        err = float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, n
+    if worst > TOL_GRAD:
+        raise AssertionError(f"gradient {worst_name}: error {worst:.3g} of max |grad| "
+                             f"over {TOL_GRAD}")
+    res["grad_max_err_of_max"] = worst
+    res["grad_worst_tensor"] = worst_name
+    log(f"training card vs CPU (float32, TF32 off): losses rel err "
+        f"{ {k: round(v['rel_err'], 9) for k, v in res['losses'].items()} } "
+        f"(bars {TOL_LOSS}), gradients {worst:.3g} of max |grad| (bar {TOL_GRAD}, "
+        f"worst {worst_name})")
+    return res
+
+
+def time_micro_steps(dev, mcfg, seed, root, repeats=3):
+    """Wall time of a training micro-step at batch 16 (forward, backward,
+    optimizer; host clock around a synchronised step), over the 4 batches of
+    the first epoch, fp32 and bf16; and one profiled micro-step of each on
+    the longest batch."""
+    from matcha_tpu_torch.data.dataset import batch_iterator
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    train_ds, _, dcfg = training_data(mcfg)
+    batches = list(batch_iterator(train_ds, dcfg, epoch=0))
+    for b in batches:
+        b.pop("n_real")
+    longest = max(range(len(batches)), key=lambda i: batches[i]["y"].shape[1])
+    res = {}
+    for precision in ("fp32", "bf16"):
+        trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(root / f"timing_{precision}"),
+                                            seed=seed, precision=precision), dcfg, device=dev)
+        trainer.init_optimizer(len(batches))
+        for i, b in enumerate(batches):  # warm up every shape
+            trainer.train_step(b, 0, i)
+        torch.cuda.synchronize()
+        per_batch = []
+        for i, b in enumerate(batches):
+            times = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                trainer.train_step(b, 0, i)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            per_batch.append({"tx_ty": [b["x"].shape[1], b["y"].shape[1]], "ms": times})
+        mean = float(np.mean([t for pb in per_batch for t in pb["ms"]]))
+        prof = profile_request(lambda: trainer.train_step(batches[longest], 0, longest))
+        res[precision] = {"mean_ms": mean, "per_batch": per_batch, "profile": prof,
+                          "profiled_batch": per_batch[longest]["tx_ty"]}
+        busy = prof.get("device_ms")
+        log(f"micro-step {precision} at batch 16: mean {mean:.1f} ms over "
+            f"{[pb['tx_ty'][1] for pb in per_batch]} frames; profiled (Ty "
+            f"{per_batch[longest]['tx_ty'][1]}): wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{busy if isinstance(busy, str) else round(busy, 2)} ms, idle "
+            f"{prof.get('idle_share', 'not measured')}, {prof.get('kernel_launches')} kernels, "
+            f"by group {prof.get('by_group_ms')}")
+    return res
+
+
 # ---------------------------------------------------------------- phase 5
 def main_path_requests(engine):
     """(name, batch, budget, mel lengths) of the two decodes the main path ran."""
@@ -431,7 +857,9 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
                                  attention_plain(q, k, v, bias, scale), atol, rtol, what)
             mask = bias[:, None, None, :]
             rows["attention_fwd"].append({
+                "path": "serve", "dtype": "bfloat16", "peak_flops": PEAK_BF16_FLOPS,
                 "request": req, "shape": [b, h, t, d], "count": count * n_timesteps,
+                "launches": count * n_timesteps,
                 "max_abs_err": err,
                 "flops": 4 * b * h * t * t * d, "bytes": 4 * b * h * t * d * elt + b * t * elt,
                 "ms": cuda_ms(lambda: attention_cuda(q, k, v, bias, scale), reps),
@@ -444,54 +872,80 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
             err = max_err_within(mrf_step_cuda(*args, dil, packed), mrf_step_plain(*args, dil),
                                  atol, rtol, f"K2 bf16 {req} {[b, c, t]} k={k} d={dil}")
             rows["mrf_step"].append({
-                "request": req, "shape": [b, c, t], "k": k, "d": dil, "count": 1,
+                "path": "serve", "dtype": "bfloat16", "peak_flops": PEAK_BF16_FLOPS,
+                "request": req, "shape": [b, c, t], "k": k, "d": dil, "count": 1, "launches": 1,
                 "max_abs_err": err,
                 "flops": 4 * b * c * c * k * t,
                 "bytes": (2 * b * c * t + 2 * c * c * k + 2 * c) * elt,
                 "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
                 "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
                 "library_ms": None})
+    log_rows(rows)
     for name, rs in rows.items():
-        for r in rs:
-            r["bound_ms"] = max(r["flops"] / PEAK_BF16_FLOPS, r["bytes"] / PEAK_BYTES) * 1e3
-            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f}"
-            kd = f" k={r['k']} d={r['d']}" if "k" in r else ""
-            log(f"{name} {r['request']} {r['shape']}{kd} x{r['count']}: {r['ms']:.4f} ms a "
-                f"launch, plain {r['plain_ms']:.4f}{lib}, bound {r['bound_ms']:.5f}, "
-                f"max abs err {r['max_abs_err']:.3g}")
-        log(f"{name} bf16 at the main path's shapes: max abs err "
+        log(f"{name} bf16 at the serving path's shapes: max abs err "
             f"{max(r['max_abs_err'] for r in rs):.3g} (tolerance atol {atol} rtol {rtol})")
     return rows
 
 
-def kernel_line(rows, errs, launches, requests):
-    """The `kernels` JSON object: each kernel's times and bound summed over the
-    launches the main path made, which are the ones its `launches` counts."""
-    sources = {
-        "attention_fwd": ("matcha_tpu_torch/csrc/attention_fwd.cu",
-                          "matcha_tpu/ops/attention_pallas.py:39"),
-        "mrf_step": ("matcha_tpu_torch/csrc/mrf_step.cu", "matcha_tpu/ops/mrf_pallas.py:44"),
-    }
-    work = " and ".join(f"{req} (batch {b}, budget {budget})" for req, b, budget, _ in requests)
-    kernels = []
+def log_rows(rows):
+    """Set each row's bound and log it: time a call, plain, library, bound."""
     for name, rs in rows.items():
+        for r in rs:
+            r["bound_ms"] = max(r["flops"] / r["peak_flops"], r["bytes"] / PEAK_BYTES) * 1e3
+            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f}"
+            kd = f" k={r['k']} d={r['d']}" if "k" in r else ""
+            log(f"{name} {r['path']} {r.get('request', '')} {r['dtype']} {r['shape']}{kd} "
+                f"x{r['count']}: {r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f}{lib}, "
+                f"bound {r['bound_ms']:.5f}, max abs err {r['max_abs_err']:.3g}")
+
+
+SOURCES = {
+    "attention_fwd": ("matcha_tpu_torch/csrc/attention_fwd.cu",
+                      "matcha_tpu/ops/attention_pallas.py:39"),
+    "mrf_step": ("matcha_tpu_torch/csrc/mrf_step.cu", "matcha_tpu/ops/mrf_pallas.py:44"),
+    "mas_forward": ("matcha_tpu_torch/csrc/mas.cu", "matcha_tpu/ops/mas_pallas.py:37"),
+    "mas_backtrack": ("matcha_tpu_torch/csrc/mas.cu", "matcha_tpu/ops/mas_pallas.py:78"),
+    "attention_bwd": ("matcha_tpu_torch/csrc/attention_bwd.cu",
+                      "matcha_tpu/ops/attention_pallas.py:87"),
+}
+
+
+def kernel_line(rows, errs, launches, work):
+    """The `kernels` JSON object: each kernel's times and bound summed over the
+    launches its paths made, which are the ones its `launches` counts.
+
+    rows: kernel -> timed rows, each with its path, `count` calls and the
+    `launches` they make; launches: path -> kernel -> count read after that path;
+    work: path -> what the path ran.
+    """
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        rs = rows[name]
+
         def total(key):
             return sum(r["count"] * r[key] for r in rs)
 
-        if sum(r["count"] for r in rs) != launches[name]:
-            raise AssertionError(f"{name}: timed {sum(r['count'] for r in rs)} launches, "
-                                 f"the main path made {launches[name]}")
-        op_ms, byte_ms = total("flops") / PEAK_BF16_FLOPS * 1e3, total("bytes") / PEAK_BYTES * 1e3
+        by_path = {}
+        for path, counts in launches.items():
+            timed = sum(r["launches"] for r in rs if r["path"] == path)
+            if timed != counts.get(name, 0):
+                raise AssertionError(f"{name}: timed {timed} launches on the {path} path, "
+                                     f"which made {counts.get(name, 0)}")
+            if timed:
+                by_path[path] = timed
+        op_ms = sum(r["count"] * r["flops"] / r["peak_flops"] for r in rs) * 1e3
+        byte_ms = total("bytes") / PEAK_BYTES * 1e3
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": max([e["max_abs_err"] for e in errs[name].values()]
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "max_abs_err": max([e["max_abs_err"] for e in errs.get(name, {}).values()]
                                + [r["max_abs_err"] for r in rs]),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            "library_ms": None if rs[0]["library_ms"] is None else total("library_ms"),
-            "work": f"the {launches[name]} launches of the main path: {work}, bf16"})
+            "library_ms": None if any(r["library_ms"] is None for r in rs) else total("library_ms"),
+            "launches_by_path": by_path,
+            "work": "; ".join(f"{path}: {work[path]}" for path in by_path)})
     return {"kernels": kernels}
 
 
@@ -536,17 +990,34 @@ def main(argv=None) -> int:
 
     mcfg, hcfg = MatchaConfig(), HiFiGANConfig()  # full width: Matcha-TTS and HiFi-GAN v1
     errs = check_kernels(dev, args.seed)
+    errs.update(check_training_kernels(dev, args.seed))
     engine = serve_main_path(dev, mcfg, hcfg, args.seed)
     log({"engine": engine})
-    e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed), "golden": golden_on_card(dev)}
-    requests = main_path_requests(engine)
-    rows = time_kernels(dev, mcfg, hcfg, args.seed, requests)
-    line = kernel_line(rows, errs, engine["launches"], requests)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        training = train_main_path(dev, mcfg, args.seed, Path(tmp))
+        e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
+               "golden": golden_on_card(dev),
+               "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
+        requests = main_path_requests(engine)
+        rows = time_kernels(dev, mcfg, hcfg, args.seed, requests)
+        for name, rs in time_training_kernels(dev, mcfg, args.seed,
+                                              training_batches(mcfg)).items():
+            rows.setdefault(name, []).extend(rs)
+        steps = time_micro_steps(dev, mcfg, args.seed, Path(tmp))
+    serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
+                              for req, b, budget, _ in requests) + ", bf16"
+    train_work = (f"Trainer.fit at batch 16 on {TRAIN_ITEMS} synthetic items, "
+                  f"{training['micro_steps_an_epoch']} micro-steps and "
+                  f"{training['val_batches_an_epoch']} validation batch an epoch: fp32 1 epoch, "
+                  f"bf16 1 epoch, bf16 resumed for a second (validation in fp32)")
+    line = kernel_line(rows, errs, {"serve": engine["launches"], "train": training["launches"]},
+                       {"serve": serve_work, "train": train_work})
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "checks": errs, "engine": engine, "e2e": e2e,
-         "kernel_rows": rows, **line}, indent=1))
+        {"card": smi, "build_s": build_s, "checks": errs, "engine": engine,
+         "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows, **line},
+        indent=1))
     log(line)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -29,6 +29,7 @@ class DecoderConfig:
     in_channels: int = 160  # 2 * n_feats (x ++ mu)
     out_channels: int = 80
     channels: Tuple[int, ...] = (256, 256)
+    dropout: float = 0.05
     attention_head_dim: int = 64
     n_blocks: int = 1
     num_mid_blocks: int = 2
@@ -102,7 +103,7 @@ class Upsample1D(nn.Module):
 
 def _transformers(cfg: DecoderConfig, dim: int) -> nn.ModuleList:
     return nn.ModuleList([
-        BasicTransformerBlock(dim, cfg.num_heads, cfg.attention_head_dim)
+        BasicTransformerBlock(dim, cfg.num_heads, cfg.attention_head_dim, cfg.dropout)
         for _ in range(cfg.n_blocks)])
 
 

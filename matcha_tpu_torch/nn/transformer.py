@@ -5,6 +5,8 @@ The attention adds the raw (B, T) 0/1 key mask to the logits (the diffusers
 `baddbmm(beta=1)` quirk the reference keeps) and runs through kernel K1
 (`ops/attention.py`). Parameter names are the reference's: `norm1`,
 `attn1.to_q/to_k/to_v/to_out.0`, `norm3`, `ff.net.0.proj`, `ff.net.2`.
+Dropout (`DecoderConfig.dropout`, active in `train()` only) follows `to_out`
+and the GELU, as in diffusers and the JAX package.
 """
 
 import math
@@ -16,14 +18,14 @@ from matcha_tpu_torch.ops.attention import attention
 
 
 class DiffusersAttention(nn.Module):
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, dropout: float = 0.0):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(dropout)])
 
     def forward(self, x, attn_bias):
         b, t, _ = x.shape
@@ -33,7 +35,7 @@ class DiffusersAttention(nn.Module):
 
         q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
         out = attention(q, k, v, attn_bias, scale=1.0 / math.sqrt(self.dim_head))
-        return self.to_out[0](out.transpose(1, 2).reshape(b, t, -1))
+        return self.to_out[1](self.to_out[0](out.transpose(1, 2).reshape(b, t, -1)))
 
 
 class GELUProj(nn.Module):
@@ -46,10 +48,9 @@ class GELUProj(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
-        # slot 1 is the reference's dropout (identity at inference)
-        self.net = nn.Sequential(GELUProj(dim, dim * mult), nn.Identity(),
+        self.net = nn.Sequential(GELUProj(dim, dim * mult), nn.Dropout(dropout),
                                  nn.Linear(dim * mult, dim))
 
     def forward(self, x):
@@ -57,12 +58,13 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_attention_heads: int, attention_head_dim: int):
+    def __init__(self, dim: int, num_attention_heads: int, attention_head_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = DiffusersAttention(dim, num_attention_heads, attention_head_dim)
+        self.attn1 = DiffusersAttention(dim, num_attention_heads, attention_head_dim, dropout)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, dropout=dropout)
 
     def forward(self, x, attention_mask=None):
         """x: (B, T, C); attention_mask: (B, T) 0/1, added to the logits."""

@@ -1,4 +1,5 @@
-"""Sequence masks, U-Net length rounding and duration -> alignment paths."""
+"""Sequence masks, U-Net length rounding, duration -> alignment paths, the
+duration loss and mel normalisation."""
 
 import math
 
@@ -29,3 +30,24 @@ def generate_path(durations: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     cum_mask = (frames[None, None, :] < cum[:, :, None]).to(mask.dtype)
     shifted = torch.nn.functional.pad(cum_mask, (0, 0, 1, 0))[:, :-1, :]
     return (cum_mask - shifted) * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_target: torch.Tensor, lengths: torch.Tensor):
+    """Sum of squared log-duration errors over the total token count."""
+    return torch.sum((logw - logw_target) ** 2) / torch.sum(lengths)
+
+
+def _stat(value, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or per-channel statistic, broadcast over the trailing time axis."""
+    value = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    return value[..., None] if value.dim() > 0 else value
+
+
+def normalize(data: torch.Tensor, mean, std) -> torch.Tensor:
+    """(x - mean) / std with scalar or per-channel statistics."""
+    return (data - _stat(mean, data)) / _stat(std, data)
+
+
+def denormalize(data: torch.Tensor, mean, std) -> torch.Tensor:
+    """x * std + mean with scalar or per-channel statistics."""
+    return data * _stat(std, data) + _stat(mean, data)

@@ -40,15 +40,18 @@ import torch
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from matcha_tpu_torch.models.matcha import MatchaTTS, tiny_config
-from matcha_tpu_torch.ops.attention import attention
+from matcha_tpu_torch.ops import mas
+from matcha_tpu_torch.ops.attention import attention, attention_backward
 from matcha_tpu_torch.ops.mrf import mrf_step
 from matcha_tpu_torch.serve import ServeConfig, TTSEngine
+from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device(None),
              lambda: TTSEngine(MatchaTTS(tiny_config()).state_dict(), tiny_config(),
                                ServeConfig(), Generator(HiFiGANConfig(num_mels=8)).state_dict(),
-                               HiFiGANConfig(num_mels=8))):
+                               HiFiGANConfig(num_mels=8)),
+             lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir"))):
     try:
         call()
     except RuntimeError as e:
@@ -61,8 +64,12 @@ for call in (lambda: resolve_device(None),
 q = torch.empty(1, 4, 8, 64, device="meta")
 w = torch.empty(8, 8, 3, device="meta")
 b = torch.empty(8, device="meta")
+value = torch.empty(2, 8, 16, device="meta")
+lengths = torch.empty(2, dtype=torch.int32, device="meta")
 for call in (lambda: attention(q, q, q, None, 0.125),
-             lambda: mrf_step(torch.empty(1, 8, 16, device="meta"), w, b, w, b, 1)):
+             lambda: mrf_step(torch.empty(1, 8, 16, device="meta"), w, b, w, b, 1),
+             lambda: mas.maximum_path(value, value, lengths, lengths),
+             lambda: attention_backward(q, q, q, None, q, 0.125)):
     try:
         call()
     except ValueError as e:
@@ -70,6 +77,10 @@ for call in (lambda: attention(q, q, q, None, 0.125),
     else:
         raise SystemExit("a wrapper ran its plain version on a non-CPU tensor")
 assert attention.launches == 0 and mrf_step.launches == 0
+assert attention_backward.launches == 0
+assert mas.mas_forward.launches == 0 and mas.mas_backtrack.launches == 0
+import os
+assert not os.path.exists("unused-ckpt-dir")  # raised before touching the disk
 print("OK")
 """
 
