@@ -9,11 +9,13 @@ PyTorch built for CUDA. In order:
 1. prints the card's name and power limit, builds every kernel of
    `matcha_tpu_torch/csrc/` with nvcc (all sources in parallel);
 2. holds each kernel against its plain PyTorch version on the card:
-   K1 (attention) at B=2, H=4, T in {128, 1000, 1024}, D=64 with a ragged 0/1
-   bias, K2 (MRF step) at every (C, k, d) of the generator at a T that is no
-   multiple of a tile, both in float32 and bf16; K3a and K3b (MAS) bit-equal
-   at B=16, Tx in {1, 45, 64, 256}, Ty in {45, 448, 1024}; K4 (attention
-   backward, dbias included) in float32 and bf16 at the shapes of K1;
+   K1 (attention, output and row log-sum-exp) at B=2, H=4, T in {128, 1000,
+   1024} and at B=1, T in {512, 1024} (the key-split path), D=64 with a
+   ragged 0/1 bias, K2 (MRF step) at every (C, k, d) of the generator at a T
+   that is no multiple of a tile, both in float32 and bf16; K3a and K3b (MAS)
+   bit-equal at B=16, Tx in {1, 45, 64, 256}, Ty in {45, 448, 1024}; K4
+   (attention backward, dbias included) in float32 and bf16 at the shapes of
+   K1, fed the plain forward's (o, lse) and once K1's own;
 3. the serving path: `TTSEngine` at full width (MatchaConfig() and HiFi-GAN
    v1, random weights from `--seed`, bf16, int16 output), 4 texts with
    per-request seeds, then one `synthesise_lowlatency` at the 1024-frame
@@ -28,8 +30,11 @@ PyTorch built for CUDA. In order:
    `tests/fixtures/golden_e2e*.npz`;
 6. at every shape each path gave each kernel, holds the kernel against its
    plain version and times the kernel, its plain version and the matching
-   PyTorch call, beside the least time the card could take; times training
-   micro-steps at batch 16 and profiles one in each precision.
+   PyTorch call, beside the least time the card could take; times K1 and K4
+   a call at the serving shapes (batch 1 and 4) and at training's B=16,
+   T=448 in both dtypes, and K1 at the serving shapes with its keys split
+   over 1 to 8 blocks; times training micro-steps at batch 16 and profiles
+   one in each precision.
 
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -42,6 +47,7 @@ build/chip_smoke.json.
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,10 +61,14 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, float32 rate outside
-# the tensor cores, and HBM3 bandwidth
+# the tensor cores, and HBM3 bandwidth. The attention kernels compute their
+# float32 products as three TF32 tensor-core products (f32 accuracy), so the
+# least time for f32-accurate products there is at a third of the dense TF32
+# rate, 495/3 TFLOP/s; the MAS kernels do float32 work on the CUDA cores.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
-PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float32: PEAK_F32_FLOPS}
+PEAK_F32_3XTF32_FLOPS = 495e12 / 3
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float32: PEAK_F32_3XTF32_FLOPS}
 PEAK_BYTES = 3.35e12
 
 # tolerances of a kernel against its plain version on the same inputs
@@ -209,27 +219,41 @@ def mrf_inputs(b, c, t, k, dtype, dev, gen):
     return tuple(a.to(dtype).contiguous() for a in (x, w1, b1, w2, b2))
 
 
+# (B, T) of the K1 and K4 checks: B = 1 at T = 512 and 1024 takes K1's key split
+ATTENTION_CHECKS = ((2, 128), (2, 1000), (2, 1024), (1, 512), (1, 1024))
+
+
 def check_kernels(dev, seed):
     """Each kernel against its plain version on the card; returns max errors."""
-    from matcha_tpu_torch.ops.attention import attention_cuda, attention_plain
+    from matcha_tpu_torch.ops.attention import (attention_cuda, attention_plain,
+                                                key_splits)
     from matcha_tpu_torch.ops.mrf import mrf_step_cuda, mrf_step_plain
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     errs = {"attention_fwd": {}, "mrf_step": {}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         atol, rtol = TOL[name]
-        worst = 0.0
-        for t in (128, 1000, 1024):
-            q, k, v, bias = attention_inputs(2, 4, t, 64, dtype, dev, gen)
+        worst = worst_lse = 0.0
+        for b, t in ATTENTION_CHECKS:
+            q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen)
             for bb in (bias, None):
-                got = attention_cuda(q, k, v, bb, 0.125)
+                what = (f"K1 {name} B={b} T={t} splits={key_splits(b, 4, t, dtype, sms)} "
+                        f"bias={'ragged' if bb is not None else 'none'}")
+                got, lse = attention_cuda(q, k, v, bb, 0.125, with_lse=True)
+                alone = attention_cuda(q, k, v, bb, 0.125)
                 torch.cuda.synchronize()
-                worst = max(worst, max_err_within(
-                    got, attention_plain(q, k, v, bb, 0.125), atol, rtol,
-                    f"K1 {name} T={t} bias={'ragged' if bb is not None else 'none'}"))
-        errs["attention_fwd"][name] = {"max_abs_err": worst, "atol": atol, "rtol": rtol}
-        log(f"K1 attention_fwd {name}: max abs err {worst:.3g} (tolerance atol {atol} rtol {rtol})")
+                want, want_lse = attention_plain(q, k, v, bb, 0.125, with_lse=True)
+                worst = max(worst, max_err_within(got, want, atol, rtol, what))
+                worst_lse = max(worst_lse, max_err_within(lse, want_lse, atol, rtol,
+                                                          f"{what} lse"))
+                if not torch.equal(alone, got):
+                    raise AssertionError(f"{what}: the output differs between two launches")
+        errs["attention_fwd"][name] = {"max_abs_err": worst, "lse_max_abs_err": worst_lse,
+                                       "atol": atol, "rtol": rtol}
+        log(f"K1 attention_fwd {name}: max abs err {worst:.3g}, lse {worst_lse:.3g} "
+            f"(tolerance atol {atol} rtol {rtol})")
 
         atol, rtol = TOL_MRF_F32 if dtype == torch.float32 else TOL[name]
         worst = 0.0
@@ -299,8 +323,10 @@ def grad_err(got, want, what, tol):
 def check_training_kernels(dev, seed):
     """K3a and K3b bit-equal to their plain version at B = 16, Tx in {1, 45, 64,
     256}, Ty in {45, 448, 1024}; K4 in f32 and bf16 against its plain version at
-    B = 2, H = 4, T in {128, 1000, 1024}, ragged bias (dbias too) and none."""
-    from matcha_tpu_torch.ops.attention import attention_bwd_cuda, attention_bwd_plain
+    the shapes of K1's check, ragged bias (dbias too) and none: both fed the
+    plain forward's (o, lse), and K4 once more fed K1's own."""
+    from matcha_tpu_torch.ops.attention import (attention_bwd_cuda, attention_bwd_plain,
+                                                attention_cuda, attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     errs = {"mas_forward": {}, "mas_backtrack": {}, "attention_bwd": {}}
@@ -317,22 +343,28 @@ def check_training_kernels(dev, seed):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tol = TOL_BWD[name]
-        worst, worst_abs = 0.0, 0.0
-        for t in (128, 1000, 1024):
-            q, k, v, bias = attention_inputs(2, 4, t, 64, dtype, dev, gen)
+        worst, worst_abs, worst_own = 0.0, 0.0, 0.0
+        for b, t in ATTENTION_CHECKS:
+            q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen)
             do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
             for bb in (bias, None):
-                got = attention_bwd_cuda(q, k, v, bb, do, 0.125, bb is not None)
+                what = f"K4 {name} B={b} T={t} bias={'ragged' if bb is not None else 'none'}"
+                o, lse = attention_plain(q, k, v, bb, 0.125, with_lse=True)
+                got = attention_bwd_cuda(q, k, v, bb, do, o, lse, 0.125, bb is not None)
+                own = attention_bwd_cuda(q, k, v, bb, do,
+                                         *attention_cuda(q, k, v, bb, 0.125, with_lse=True),
+                                         0.125, bb is not None)
                 torch.cuda.synchronize()
-                want = attention_bwd_plain(q, k, v, bb, do, 0.125)
+                want = attention_bwd_plain(q, k, v, bb, do, o, lse, 0.125)
                 if bb is None:
                     want = want[:3] + (None,)
-                rel, diff = grad_err(got, want, f"K4 {name} T={t} bias="
-                                     f"{'ragged' if bb is not None else 'none'}", tol)
+                rel, diff = grad_err(got, want, what, tol)
                 worst, worst_abs = max(worst, rel), max(worst_abs, diff)
+                worst_own = max(worst_own, grad_err(own, want, f"{what} (K1's o, lse)", tol)[0])
         errs["attention_bwd"][name] = {"max_err_of_max_grad": worst, "max_abs_err": worst_abs,
-                                       "tol": tol}
-        log(f"K4 attention_bwd {name}: max error {worst:.3g} of max |grad| (tolerance {tol})")
+                                       "max_err_of_max_grad_k1_o_lse": worst_own, "tol": tol}
+        log(f"K4 attention_bwd {name}: max error {worst:.3g} of max |grad|, {worst_own:.3g} fed "
+            f"K1's o and lse (tolerance {tol})")
     return errs
 
 
@@ -418,8 +450,7 @@ def serve_main_path(dev, mcfg, hcfg, seed):
 # (group, substring of the kernel's name), first match wins
 KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
                  ("K3a mas_forward", "mas_forward"), ("K3b mas_backtrack", "mas_backtrack"),
-                 ("K4 attention_bwd", "dkdv_"), ("K4 attention_bwd", "stats_"),
-                 ("K4 attention_bwd", "dq_"),
+                 ("K4 attention_bwd", "attn_bwd"),
                  ("convolution", "conv"),
                  ("convolution", "fprop"), ("convolution", "dgrad"),
                  ("convolution", "nchwtonhwc"), ("convolution", "nhwctonchw"),
@@ -565,7 +596,7 @@ def train_main_path(dev, mcfg, seed, root):
     """`Trainer.fit` at full width on 64 synthetic items: one epoch in fp32, one in
     bf16, then the bf16 run resumed for a second epoch. The launch counts are
     set to 0 just before and read just after, and must be as derived: per
-    micro-step K3a 1, K3b 1, K1 6 and K4 18 (6 backward calls of 3 launches),
+    micro-step K3a 1, K3b 1, K1 6 and K4 12 (6 backward calls of 2 launches),
     per validation batch K3a 1, K3b 1, K1 6."""
     from matcha_tpu_torch.data.dataset import num_batches
     from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -597,7 +628,7 @@ def train_main_path(dev, mcfg, seed, root):
     want = {"mas_forward": epochs * (micro + val_batches),
             "mas_backtrack": epochs * (micro + val_batches),
             "attention_fwd": epochs * (micro + val_batches) * n_attn,
-            "attention_bwd": epochs * micro * n_attn * 3}
+            "attention_bwd": epochs * micro * n_attn * 2}
     log(f"training path launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"training kernel launches {counts}, expected {want}")
@@ -640,8 +671,6 @@ def time_training_kernels(dev, mcfg, seed, batches, reps=20):
     bound. Inputs are random at the path's shapes and lengths (a MAS's time
     does not depend on its scores)."""
     from matcha_tpu_torch.ops import mas
-    from matcha_tpu_torch.ops.attention import (attention_bwd_cuda, attention_bwd_plain,
-                                                attention_cuda, attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     dcfg = mcfg.decoder
@@ -654,7 +683,8 @@ def time_training_kernels(dev, mcfg, seed, batches, reps=20):
         groups[("mas", (tx, ty) + lengths)] = groups.get(("mas", (tx, ty) + lengths), 0) + 1
         dtype = "bfloat16" if (kind == "train" and precision == "bf16") else "float32"
         for n, t in attention_shapes(dcfg, ty):
-            key = (dtype, t, ty, lengths[1])
+            # a training forward writes lse for its backward; validation's does not
+            key = (dtype, t, ty, lengths[1], kind == "train")
             groups[("fwd", key)] = groups.get(("fwd", key), 0) + n
             if kind == "train":
                 groups[("bwd", key)] = groups.get(("bwd", key), 0) + n
@@ -686,43 +716,132 @@ def time_training_kernels(dev, mcfg, seed, batches, reps=20):
                 ms=cuda_ms(lambda: mas.mas_backtrack(words, t_x, t_y, tx), reps),
                 plain_ms=events_ms(lambda: mas.mas_backtrack_plain(bits, t_x, t_y), 3)))
             continue
-        dtype_name, t, frames, y_lengths = key
+        dtype_name, t, frames, y_lengths, with_lse = key
         dtype = getattr(torch, dtype_name)
-        bsz, elt = len(y_lengths), 2 if dtype == torch.bfloat16 else 4
+        bsz = len(y_lengths)
         q, k, v, bias = attention_inputs(bsz, h, t, d, dtype, dev, gen, list(y_lengths), frames)
         common = {"path": "train", "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype],
                   "shape": [bsz, h, t, d], "count": count}
         if kind == "fwd":
-            atol, rtol = TOL[dtype_name]
-            err = max_err_within(attention_cuda(q, k, v, bias, scale),
-                                 attention_plain(q, k, v, bias, scale), atol, rtol,
-                                 f"K1 {dtype_name} training {[bsz, h, t, d]}")
-            mask = bias[:, None, None, :]
             rows["attention_fwd"].append(dict(
-                common, launches=count, max_abs_err=err,
-                flops=4 * bsz * h * t * t * d, bytes=4 * bsz * h * t * d * elt + bsz * t * elt,
-                ms=cuda_ms(lambda: attention_cuda(q, k, v, bias, scale), reps),
-                plain_ms=cuda_ms(lambda: attention_plain(q, k, v, bias, scale), reps),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale), reps)))
+                common, **attention_fwd_row(q, k, v, bias, scale, with_lse, reps),
+                launches=count, lse=with_lse))
         else:
-            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
-            rel, diff = grad_err(attention_bwd_cuda(q, k, v, bias, do, scale, False),
-                                 attention_bwd_plain(q, k, v, bias, do, scale)[:3] + (None,),
-                                 f"K4 {dtype_name} training {[bsz, h, t, d]}", TOL_BWD[dtype_name])
-            leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
-            out = F.scaled_dot_product_attention(*leaves, attn_mask=bias[:, None, None, :],
-                                                 scale=scale)
             rows["attention_bwd"].append(dict(
-                common, launches=3 * count, max_abs_err=diff, max_err_of_max_grad=rel,
-                flops=10 * bsz * h * t * t * d,
-                bytes=7 * bsz * h * t * d * elt + bsz * t * elt,
-                ms=cuda_ms(lambda: attention_bwd_cuda(q, k, v, bias, do, scale, False), reps),
-                plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, bias, do, scale), reps),
-                library_ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                               retain_graph=True), reps)))
+                common, **attention_bwd_row(q, k, v, bias, scale, gen, reps), launches=2 * count))
     log_rows(rows)
     return rows
+
+
+def attention_fwd_row(q, k, v, bias, scale, with_lse, reps):
+    """K1 at one shape: held against its plain version (o, and lse when the
+    path writes it), then timed beside its plain version and SDPA; the work."""
+    from matcha_tpu_torch.ops.attention import attention_cuda, attention_plain
+
+    b, h, t, d = q.shape
+    elt = q.element_size()
+    name = str(q.dtype).split(".")[1]
+    atol, rtol = TOL[name]
+    got = attention_cuda(q, k, v, bias, scale, with_lse=True)
+    want = attention_plain(q, k, v, bias, scale, with_lse=True)
+    err = max(max_err_within(g, w, atol, rtol, f"K1 {name} {[b, h, t, d]} {what}")
+              for g, w, what in zip(got, want, ("o", "lse")))
+    mask = None if bias is None else bias[:, None, None, :]
+    return {"max_abs_err": err, "flops": 4 * b * h * t * t * d,
+            "bytes": (4 * b * h * t * d + b * t) * elt + (b * h * t * 4 if with_lse else 0),
+            "ms": cuda_ms(lambda: attention_cuda(q, k, v, bias, scale, with_lse), reps),
+            "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, bias, scale, with_lse), reps),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale), reps)}
+
+
+def attention_bwd_row(q, k, v, bias, scale, gen, reps):
+    """K4 at one shape, without dbias (the decoder's mask takes no gradient):
+    held against its plain version on the plain forward's (o, lse), then
+    timed beside its plain version and SDPA's backward; the work (5 products,
+    q, k, v, do, o, lse and the bias in, dq, dk, dv out)."""
+    from matcha_tpu_torch.ops.attention import (attention_bwd_cuda, attention_bwd_plain,
+                                                attention_plain)
+
+    b, h, t, d = q.shape
+    elt = q.element_size()
+    name = str(q.dtype).split(".")[1]
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    o, lse = attention_plain(q, k, v, bias, scale, with_lse=True)
+    rel, diff = grad_err(attention_bwd_cuda(q, k, v, bias, do, o, lse, scale, False),
+                         attention_bwd_plain(q, k, v, bias, do, o, lse, scale)[:3] + (None,),
+                         f"K4 {name} {[b, h, t, d]}", TOL_BWD[name])
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=None if bias is None else bias[:, None, None, :], scale=scale)
+    return {"max_abs_err": diff, "max_err_of_max_grad": rel, "flops": 10 * b * h * t * t * d,
+            "bytes": (8 * b * h * t * d + b * t) * elt + b * h * t * 4,
+            "ms": cuda_ms(lambda: attention_bwd_cuda(q, k, v, bias, do, o, lse, scale, False),
+                          reps),
+            "plain_ms": cuda_ms(lambda: attention_bwd_plain(q, k, v, bias, do, o, lse, scale),
+                                reps),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                                  reps)}
+
+
+# (B, T) of the per-call table: the serving path's batch-1 and batch-4 shapes
+# and a training micro-step's longest
+PER_CALL_SHAPES = ((1, 1024), (1, 512), (4, 512), (4, 256), (16, 448))
+
+
+def time_attention_per_call(dev, seed, reps=20):
+    """K1 (without lse, as serving calls it) and K4 a call, in both dtypes, at
+    PER_CALL_SHAPES with H = 4, D = 64 and ragged lengths: beside SDPA and the
+    bound. Not on the main path: these launches count toward no path."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t in PER_CALL_SHAPES:
+            q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen,
+                                             [t - 37 * (i % 2) for i in range(b)])
+            for name, row in (
+                    ("attention_fwd", attention_fwd_row(q, k, v, bias, 0.125, False, reps)),
+                    ("attention_bwd", attention_bwd_row(q, k, v, bias, 0.125, gen, reps))):
+                row.update(kernel=name, dtype=str(dtype).split(".")[1], shape=[b, 4, t, 64],
+                           bound_ms=max(row["flops"] / PEAK_FLOPS[dtype],
+                                        row["bytes"] / PEAK_BYTES) * 1e3)
+                out.append(row)
+                log(f"{name} a call {row['dtype']} {row['shape']}: {row['ms']:.4f} ms, SDPA "
+                    f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+                    f"{row['bound_ms']:.5f}")
+    return out
+
+
+def time_key_splits(dev, seed, reps=20):
+    """K1 a call at the serving shapes with its keys split over every count
+    of blocks from 1 to 8, each held against the plain version: the
+    measurement behind `key_splits`. Not on the main path."""
+    from unittest import mock
+
+    from matcha_tpu_torch.ops import attention as attention_ops
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for b, t in PER_CALL_SHAPES[:4]:
+            q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen,
+                                             [t - 37 * (i % 2) for i in range(b)])
+            want = attention_ops.attention_plain(q, k, v, bias, 0.125)
+            ms = {}
+            for s in range(1, min(8, -(-t // 64)) + 1):
+                with mock.patch.object(attention_ops, "key_splits", lambda *a, s=s: s):
+                    max_err_within(attention_ops.attention_cuda(q, k, v, bias, 0.125), want,
+                                   *TOL[name], f"K1 {name} B={b} T={t} split {s}")
+                    ms[s] = cuda_ms(lambda: attention_ops.attention_cuda(q, k, v, bias, 0.125),
+                                    reps)
+            chosen = attention_ops.key_splits(b, 4, t, dtype, sms)
+            out.append({"dtype": name, "shape": [b, 4, t, 64], "ms_by_splits": ms,
+                        "chosen": chosen})
+            log(f"K1 {name} [{b}, 4, {t}, 64] ms by key splits "
+                f"{ {s: round(x, 4) for s, x in ms.items()} }, key_splits chose {chosen}")
+    return out
 
 
 def train_card_vs_cpu(dev, mcfg, seed):
@@ -840,7 +959,6 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
     """At every shape the main path gave K1 and K2 (bf16): the kernel against
     its plain version, then per-launch kernel, plain and library times and
     each launch's bound."""
-    from matcha_tpu_torch.ops.attention import attention_cuda, attention_plain
     from matcha_tpu_torch.ops.mrf import mrf_step_cuda, mrf_step_plain, pack_weights
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -852,20 +970,11 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
     for req, b, budget, mel_lengths in requests:
         for count, t in attention_shapes(dcfg, budget):
             q, k, v, bias = attention_inputs(b, h, t, d, bf16, dev, gen, mel_lengths, budget)
-            what = f"K1 bf16 {req} {[b, h, t, d]}"
-            err = max_err_within(attention_cuda(q, k, v, bias, scale),
-                                 attention_plain(q, k, v, bias, scale), atol, rtol, what)
-            mask = bias[:, None, None, :]
             rows["attention_fwd"].append({
                 "path": "serve", "dtype": "bfloat16", "peak_flops": PEAK_BF16_FLOPS,
                 "request": req, "shape": [b, h, t, d], "count": count * n_timesteps,
-                "launches": count * n_timesteps,
-                "max_abs_err": err,
-                "flops": 4 * b * h * t * t * d, "bytes": 4 * b * h * t * d * elt + b * t * elt,
-                "ms": cuda_ms(lambda: attention_cuda(q, k, v, bias, scale), reps),
-                "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, bias, scale), reps),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale), reps)})
+                "launches": count * n_timesteps, "lse": False,
+                **attention_fwd_row(q, k, v, bias, scale, False, reps)})
         for c, t, k, dil in mrf_shapes(hcfg, budget):
             args = mrf_inputs(b, c, t, k, bf16, dev, gen)
             packed = pack_weights(args[1], args[3])  # once, as ResBlock1 packs its weights
@@ -949,6 +1058,21 @@ def kernel_line(rows, errs, launches, work):
     return {"kernels": kernels}
 
 
+def kernel_resources(build_log):
+    """[(kernel, ptxas's registers and shared memory line)] from an `nvcc
+    -Xptxas -v` log; a template's kernel is named with its element type."""
+    out, kernel = [], "?"
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"\d([a-z][a-z_]*_kernel)(I(f|13__nv_bfloat16)E)?", entry.group(1))
+            kernel = entry.group(1) if name is None else name.group(1) + (
+                {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(name.group(3), ""))
+        elif "Used" in line:
+            out.append((kernel, line.split(":", 1)[1].strip()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
     ap.add_argument("--seed", type=int, default=0, help="seed of weights, inputs and noise")
@@ -984,9 +1108,8 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"built {built} in {build_s:.1f} s")
     for name in built:
-        for line in _build.build_log(name).splitlines():
-            if "Used" in line:
-                log(f"  {name}: {line.split(':', 1)[1].strip()}")
+        for kernel, used in kernel_resources(_build.build_log(name)):
+            log(f"  {name} {kernel}: {used}")
 
     mcfg, hcfg = MatchaConfig(), HiFiGANConfig()  # full width: Matcha-TTS and HiFi-GAN v1
     errs = check_kernels(dev, args.seed)
@@ -1003,6 +1126,8 @@ def main(argv=None) -> int:
         for name, rs in time_training_kernels(dev, mcfg, args.seed,
                                               training_batches(mcfg)).items():
             rows.setdefault(name, []).extend(rs)
+        per_call = time_attention_per_call(dev, args.seed)
+        splits = time_key_splits(dev, args.seed)
         steps = time_micro_steps(dev, mcfg, args.seed, Path(tmp))
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                               for req, b, budget, _ in requests) + ", bf16"
@@ -1016,7 +1141,8 @@ def main(argv=None) -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "engine": engine,
-         "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows, **line},
+         "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows,
+         "attention_per_call": per_call, "key_splits": splits, **line},
         indent=1))
     log(line)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

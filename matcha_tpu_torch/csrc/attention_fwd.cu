@@ -1,354 +1,249 @@
-// Decoder self-attention forward, flash-style, for Hopper (sm_90a).
+// Decoder self-attention forward (K1), flash-style, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel matcha_tpu/ops/attention_pallas.py::_attn_kernel:
 //   o = softmax(q k^T * scale + bias[b, None, :]) v        per (batch, head)
 // with bias the raw (B, T) 0/1 key mask added to the logits (the diffusers
-// quirk the reference keeps). The TPU kernel holds the whole (T, T) score tile
-// in VMEM; at T = 1024 that is 4 MB of f32, far beyond the 227 KB of shared
-// memory of an SM, so this kernel never forms it: one block per
-// (64-query tile, batch*head) streams 64-key tiles of K and V through shared
-// memory and keeps an online max and sum per query row in f32 registers.
+// quirk the reference keeps). When autograd needs it, the kernel also writes
+// the row log-sum-exp lse = m + log(l), f32 (B, H, T), which the backward (K4)
+// reads instead of recomputing the softmax statistics.
 //
-// Bound: at the decoder's shapes (H = 4, D = 64, T <= 1024) the work is
-// 4*B*H*T^2*D flops against 4*B*H*T*D elements of traffic, so it is bound by
-// operations. Two paths, by dtype:
+// Bound: 4*B*H*T^2*D flops against 4*B*H*T*D elements moved, so operations at
+// the decoder's T; at the serving path's batch 1 the grid is the limit.
 //
-// bf16 with D = 64 (serving): both products on the tensor cores (mma.sync
-// m16n8k16, f32 accumulators). 4 warps a block, 16 query rows a warp, held as
-// A fragments in registers; each 64-key tile is staged as K [key][d] and V^T
-// [d][key] in shared memory (rows padded by 8 bf16, so the 8 rows a fragment
-// reads start 4 banks apart). The score fragments are rescaled, biased and
-// exponentiated in registers and become, rounded to bf16, the A fragments of
-// P V, as the TPU kernel rounds p to v's dtype.
+// Design: one block of 4 warps per (64-query tile, batch*head, key split).
+// The query tile and a ring of K/V tiles (3 stages in bf16, 2 in f32) live in
+// shared memory, staged by cp.async: tile i + 1 is in flight while tile i is
+// multiplied (attention_tiles.cuh: swizzled [row][d] tiles, ldmatrix and
+// mma.sync m16n8k16 in bf16, three TF32 mma.sync in f32). Scores, online max
+// and sum stay in f32 registers; p is rounded to bf16 only as it enters p v.
 //
-// f32 (parity runs): f32 FMAs on the CUDA cores. 256 threads, 4 per
-// query row. A thread holds its row of q in registers, scores 16 of the 64
-// keys of a tile (keys sub + 4i), and owns 16 of the D output features as
-// float4 groups 4*(sub + 4c). The 4 threads of a row are neighbouring lanes:
-// row max and sum are two xor-shuffles, and each probability reaches the other
-// three threads by a shuffle. Shared-memory strides are chosen so the 128-bit
-// loads of a quarter-warp hit distinct banks.
+// Key split: when the grid (query tiles x B*H) leaves SMs idle and each block
+// would walk many key tiles, the wrapper splits each row's keys over S ranges,
+// S from the shape, the dtype and the SM count (ops/attention.py::key_splits). The S
+// blocks of a query tile form a thread-block cluster: each keeps its
+// unnormalised o, m and l in shared memory, and after a cluster barrier each
+// combines a slice of the rows from all S partials, in split order, through
+// distributed shared memory. One launch, no scratch in device memory, no
+// atomics, and the result does not depend on the blocks' order.
+//
+// Rows past T: keys are zero with a -inf bias (p = 0); queries are zero and
+// nothing past T is written.
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "attention_tiles.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 4 threads per query row
+using namespace attn;
 
-template <typename T, int D>
+constexpr int MAX_SPLITS = 8;  // blocks of a cluster, the portable limit
+constexpr int PS = DH + 8;     // row stride of a partial o in shared memory (floats)
+
+template <typename T>
+constexpr size_t fwd_smem() {
+  return (size_t)(1 + 2 * stages<T>()) * TILE_ELEMS * sizeof(T) +
+         stages<T>() * TILE * sizeof(float);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ bias, long long bias_stride, T* __restrict__ o, int H,
-                int Tlen, float scale) {
-  constexpr int KS = D + 4;      // K row stride in floats: keeps float4 alignment, spreads banks
-  constexpr int KPT = BK / 4;    // keys scored per thread
-  constexpr int G4 = D / 16;     // float4 output groups per thread
-  __shared__ __align__(16) float ks[BK * KS];
-  __shared__ __align__(16) float vs[BK * D];
-  __shared__ float bs[BK];
+                const T* __restrict__ bias, long long bias_stride, T* __restrict__ o,
+                float* __restrict__ lse, int H, int n, float scale) {
+  constexpr int NS = stages<T>();
+  static_assert(2 * NS * TILE_ELEMS * sizeof(T) >= (TILE * PS + 2 * TILE) * sizeof(float),
+                "a split's partial must fit in the ring");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ring = qs + TILE_ELEMS;  // stage s: K at ring + 2s tiles, V after it
+  float* bs = reinterpret_cast<float*>(ring + 2 * NS * TILE_ELEMS);  // NS x 64 key biases
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int tid = threadIdx.x;
-  const int row = tid >> 2, sub = tid & 3;
-  const int lane = tid & 31;
-  const int qi = blockIdx.x * BQ + row;
-  const size_t base = (size_t)bh * Tlen * D;
+  const int qt = blockIdx.x, bh = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int b = bh / H, q0 = qt * TILE;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int j0 = split * tiles / splits, j1 = (split + 1) * tiles / splits;
+  const size_t base = (size_t)bh * n * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * LOG2E;
 
-  float qr[D];
+  load_tile(qs, q + base, q0, n);
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = qi < Tlen ? to_f32(q[base + (size_t)qi * D + d]) : 0.f;
-
-  float acc[G4][4];
-#pragma unroll
-  for (int c = 0; c < G4; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < Tlen; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, d = idx % D, kj = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kj < Tlen) {
-        kv = to_f32(k[base + (size_t)kj * D + d]);
-        vv = to_f32(v[base + (size_t)kj * D + d]);
-      }
-      ks[j * KS + d] = kv;
-      vs[j * D + d] = vv;
+  for (int s = 0; s < NS - 1; ++s) {
+    const int j = j0 + s;
+    if (j < j1) {
+      load_tile(ring + 2 * s * TILE_ELEMS, k + base, j * TILE, n);
+      load_tile(ring + (2 * s + 1) * TILE_ELEMS, v + base, j * TILE, n);
+      if (threadIdx.x < TILE)
+        bs[s * TILE + threadIdx.x] = key_bias2(bias, bias_stride, b, j * TILE + threadIdx.x, n);
     }
-    if (tid < BK) {
-      const int kj = k0 + tid;
-      bs[tid] = kj < Tlen ? (bias ? to_f32(bias[b * bias_stride + kj]) : 0.f) : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[KPT];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int j = sub + 4 * i;
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * KS);
-      float dot = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kk = kr[d4];
-        dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-      }
-      s[i] = dot * scale + bs[j];
-      tmax = fmaxf(tmax, s[i]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);  // 0 on the first tile (m = -inf)
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      s[i] = expf(s[i] - m_new);  // keys past T carry -inf: p = 0
-      psum += s[i];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int c = 0; c < G4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha;
-
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-#pragma unroll
-      for (int src = 0; src < 4; ++src) {
-        const float p = __shfl_sync(0xffffffffu, s[i], (lane & ~3) | src);
-        const float4* vr = reinterpret_cast<const float4*>(vs + (src + 4 * i) * D);
-#pragma unroll
-        for (int c = 0; c < G4; ++c) {
-          const float4 vv = vr[sub + 4 * c];
-          acc[c][0] = fmaf(p, vv.x, acc[c][0]);
-          acc[c][1] = fmaf(p, vv.y, acc[c][1]);
-          acc[c][2] = fmaf(p, vv.z, acc[c][2]);
-          acc[c][3] = fmaf(p, vv.w, acc[c][3]);
-        }
-      }
-    }
+    cp_commit();
   }
 
-  if (qi < Tlen) {
-    const float inv = 1.f / l;
-    T* orow = o + base + (size_t)qi * D;
+  float acc[8][4];
+  zero(acc);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // row max (base 2) and sum
+
+  for (int j = j0; j < j1; ++j) {
+    const int li = j - j0, jn = j + NS - 1, sn = (li + NS - 1) % NS, sl = li % NS;
+    cp_wait<NS - 2>();
+    __syncthreads();  // tile j landed for every thread; slot sn is consumed
+    float nb = 0.f;
+    if (jn < j1) {
+      load_tile(ring + 2 * sn * TILE_ELEMS, k + base, jn * TILE, n);
+      load_tile(ring + (2 * sn + 1) * TILE_ELEMS, v + base, jn * TILE, n);
+      if (threadIdx.x < TILE) nb = key_bias2(bias, bias_stride, b, jn * TILE + threadIdx.x, n);
+    }
+    cp_commit();
+
+    const T* ks = ring + 2 * sl * TILE_ELEMS;
+    const float* bsl = bs + sl * TILE;
+    float s[8][4];
+    mm_rows<T>(s, qs, warp * 16, ks);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < G4; ++c)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) orow[4 * (sub + 4 * c) + e] = from_f32<T>(acc[c][e] * inv);
-  }
-}
-
-// ---------------------------------------------------------------- bf16: tensor cores
-namespace tc {
-
-typedef __nv_bfloat16 bf16;
-constexpr int DH = 64;          // head dim
-constexpr int TQ = 64;          // queries a block, 16 a warp
-constexpr int TK = 64;          // keys a tile
-constexpr int WARPS = TQ / 16;
-constexpr int KP = DH + 8;      // row stride of K in shared memory (bf16)
-constexpr int VP = TK + 8;      // row stride of V^T in shared memory (bf16)
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layouts are those of mma.m16n8k16: lane = 4 * g + t holds rows g
-// and g + 8 of A and C (columns 2t, 2t + 1, and 2t + 8, 2t + 9 of A), and
-// column g, rows 2t, 2t + 1, 2t + 8, 2t + 9 of B.
-__global__ void __launch_bounds__(WARPS * 32)
-attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                   long long bias_stride, bf16* __restrict__ o, int H, int Tlen, float scale) {
-  __shared__ __align__(16) bf16 ks[TK * KP];  // [key][d]
-  __shared__ __align__(16) bf16 vt[DH * VP];  // [d][key]
-  __shared__ float bs[TK];
-
-  const int bh = blockIdx.y, b = bh / H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)bh * Tlen * DH;
-  const int r0 = blockIdx.x * TQ + warp * 16 + g, r1 = r0 + 8;  // this lane's query rows
-
-  uint32_t qa[DH / 16][4];  // the warp's 16 rows of q as A fragments
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    const int c = 16 * kc + 2 * t;
-    qa[kc][0] = r0 < Tlen ? ld32(q + base + (size_t)r0 * DH + c) : 0u;
-    qa[kc][1] = r1 < Tlen ? ld32(q + base + (size_t)r1 * DH + c) : 0u;
-    qa[kc][2] = r0 < Tlen ? ld32(q + base + (size_t)r0 * DH + c + 8) : 0u;
-    qa[kc][3] = r1 < Tlen ? ld32(q + base + (size_t)r1 * DH + c + 8) : 0u;
-  }
-
-  float acc[DH / 8][4];  // o rows g, g + 8; features 8 * nt + 2t, + 1
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < Tlen; k0 += TK) {
-    __syncthreads();  // the previous tile is consumed
-    // lanes take consecutive keys: conflict-free stores to both layouts
-    for (int idx = threadIdx.x; idx < TK * DH / 8; idx += blockDim.x) {
-      const int j = idx % TK, d0 = (idx / TK) * 8, kj = k0 + j;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kj < Tlen) {
-        kv = *reinterpret_cast<const uint4*>(k + base + (size_t)kj * DH + d0);
-        vv = *reinterpret_cast<const uint4*>(v + base + (size_t)kj * DH + d0);
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = fmaf(s[nt][e], scale2, bsl[8 * nt + 2 * t + (e & 1)]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
-      *reinterpret_cast<uint4*>(ks + j * KP + d0) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+    float al[2], ps[2] = {0.f, 0.f};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(d0 + e) * VP + j] = ve[e];
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(mx[h]));  // finite: a tile's first key is < T
+      al[h] = exp2f(m[h] - mn);                        // 0 on the first tile
+      m[h] = mn;
     }
-    if (threadIdx.x < TK) {
-      const int kj = k0 + threadIdx.x;
-      bs[threadIdx.x] =
-          kj < Tlen ? (bias ? to_f32(bias[b * bias_stride + kj]) : 0.f) : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[TK / 8][4];  // scores: rows g, g + 8; keys 8 * nt + 2t, + 1
 #pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const bf16* kr = ks + (8 * nt + g) * KP + 2 * t;
-#pragma unroll
-      for (int kc = 0; kc < DH / 16; ++kc)
-        mma_bf16(s[nt], qa[kc], ld32(kr + 16 * kc), ld32(kr + 16 * kc + 8));
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
-      const float b0 = bs[8 * nt + 2 * t], b1 = bs[8 * nt + 2 * t + 1];
-      s[nt][0] = s[nt][0] * scale + b0;  // keys past T carry -inf
-      s[nt][1] = s[nt][1] * scale + b1;
-      s[nt][2] = s[nt][2] * scale + b0;
-      s[nt][3] = s[nt][3] * scale + b1;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);  // 0 on the first tile
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
-    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
-    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
-    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      acc[nt][0] *= al0;
-      acc[nt][1] *= al0;
-      acc[nt][2] *= al1;
-      acc[nt][3] *= al1;
-    }
-
-    // o += p v: score tiles 2kc and 2kc + 1 are the A fragment of keys 16kc..16kc+15
-#pragma unroll
-    for (int kc = 0; kc < TK / 16; ++kc) {
-      const uint32_t pa[4] = {pack(s[2 * kc][0], s[2 * kc][1]), pack(s[2 * kc][2], s[2 * kc][3]),
-                              pack(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < DH / 8; ++nt) {
-        const bf16* vr = vt + (8 * nt + g) * VP + 16 * kc + 2 * t;
-        mma_bf16(acc[nt], pa, ld32(vr), ld32(vr + 8));
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
+        ps[e >> 1] += s[nt][e];
+        acc[nt][e] *= al[e >> 1];
       }
-    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * al[h] + quad_sum(ps[h]);
+    mm_cols<T>(acc, s, ks + TILE_ELEMS);
+
+    if (jn < j1 && threadIdx.x < TILE) bs[sn * TILE + threadIdx.x] = nb;
   }
 
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r0 = warp * 16 + g;  // this lane's rows in the tile: r0, r0 + 8
+  if (splits == 1) {
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int c = 8 * nt + 2 * t;
-    if (r0 < Tlen)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)r0 * DH + c) =
-          pack(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    if (r1 < Tlen)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)r1 * DH + c) =
-          pack(acc[nt][2] * inv1, acc[nt][3] * inv1);
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + r0 + 8 * h;
+      if (qi >= n) continue;
+      const float inv = 1.f / l[h];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        store2(o + base + (size_t)qi * DH + 8 * nt + 2 * t, acc[nt][2 * h] * inv,
+               acc[nt][2 * h + 1] * inv);
+      if (lse && t == 0) lse[(size_t)bh * n + qi] = (m[h] + log2f(l[h])) * LN2;
+    }
+    return;
   }
+
+  // ---- key split: the S blocks of this query tile are one cluster. Each
+  // leaves its unnormalised o, m and l in its own shared memory; after a
+  // cluster barrier each combines 64/S of the rows, reading all S partials
+  // in split order through distributed shared memory.
+  cg::cluster_group cluster = cg::this_cluster();
+  cp_wait<0>();
+  __syncthreads();  // the ring is read no more: it holds the partial now
+  float* po = reinterpret_cast<float*>(ring);  // [64][PS] o, then m[64], l[64]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      store2(po + r * PS + 8 * nt + 2 * t, acc[nt][2 * h], acc[nt][2 * h + 1]);
+    if (t == 0) {
+      po[TILE * PS + r] = m[h];
+      po[TILE * PS + TILE + r] = l[h];
+    }
+  }
+  cluster.sync();
+
+  const int rb = split * TILE / splits, re = (split + 1) * TILE / splits;
+  for (int i = threadIdx.x; i < (re - rb) * (DH / 4); i += THREADS) {
+    const int r = rb + i / (DH / 4), c = 4 * (i % (DH / 4));
+    float w[MAX_SPLITS], mmax = -INFINITY, sum = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      w[s] = cluster.map_shared_rank(po, s)[TILE * PS + r];
+      mmax = fmaxf(mmax, w[s]);
+    }
+    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float* ps = cluster.map_shared_rank(po, s);
+      w[s] = exp2f(w[s] - mmax);
+      sum += w[s] * ps[TILE * PS + TILE + r];
+      const float4 x = *reinterpret_cast<const float4*>(ps + r * PS + c);
+      out.x += w[s] * x.x;
+      out.y += w[s] * x.y;
+      out.z += w[s] * x.z;
+      out.w += w[s] * x.w;
+    }
+    const int qi = q0 + r;
+    if (qi < n) {
+      const float inv = 1.f / sum;
+      T* orow = o + base + (size_t)qi * DH + c;
+      store2(orow, out.x * inv, out.y * inv);
+      store2(orow + 2, out.z * inv, out.w * inv);
+      if (lse && c == 0) lse[(size_t)bh * n + qi] = (mmax + log2f(sum)) * LN2;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
+template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias, long long bias_stride,
-           void* o, int B, int H, int Tlen, float scale, cudaStream_t stream) {
-  dim3 grid((Tlen + TQ - 1) / TQ, B * H);
-  attn_fwd_tc_kernel<<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(bias), bias_stride, static_cast<bf16*>(o), H, Tlen, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace tc
-
-int launch_f32(const void* q, const void* k, const void* v, const void* bias,
-               long long bias_stride, void* o, int B, int H, int Tlen, float scale,
-               cudaStream_t stream) {
-  dim3 grid((Tlen + BQ - 1) / BQ, B * H);
-  attn_fwd_kernel<float, 64><<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(bias), bias_stride, static_cast<float*>(o), H, Tlen, scale);
-  return (int)cudaGetLastError();
+           void* o, float* lse, int B, int H, int n, float scale, int splits,
+           cudaStream_t stream) {
+  const int err = set_smem((const void*)attn_fwd_kernel<T>, fwd_smem<T>());
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + TILE - 1) / TILE, B * H, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = fwd_smem<T>();
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, attn_fwd_kernel<T>, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(bias), bias_stride, static_cast<T*>(o), lse,
+      H, n, scale);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: (B, H, T, 64) contiguous and 16-byte aligned, f32 or bf16
 // (`dtype`); bias: null, or the (B, T) additive key bias in q's dtype, row b at
-// bias + b * bias_stride elements, keys contiguous. Launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// bias + b * bias_stride elements, keys contiguous; lse: null (nothing
+// written) or (B, H, T) f32. splits: key ranges per query tile, 1 to
+// min(ceil(T / 64), 8), each a block of one cluster. Launches on `stream`
+// and returns the launch's error (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                             long long bias_stride, void* o, int B, int H, int Tlen, int D,
-                             float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Tlen <= 0 || D != tc::DH) return (int)cudaErrorInvalidValue;
+                             long long bias_stride, void* o, void* lse, int B, int H, int T,
+                             int D, float scale, int splits, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || D != DH || splits < 1 || splits > MAX_SPLITS ||
+      splits > (T + TILE - 1) / TILE)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch_f32(q, k, v, bias, bias_stride, o, B, H, Tlen, scale, s);
+  float* l = static_cast<float*>(lse);
+  if (dtype == DTYPE_F32)
+    return launch<float>(q, k, v, bias, bias_stride, o, l, B, H, T, scale, splits, s);
   if (dtype == DTYPE_BF16)
-    return tc::launch(q, k, v, bias, bias_stride, o, B, H, Tlen, scale, s);
+    return launch<bf16>(q, k, v, bias, bias_stride, o, l, B, H, T, scale, splits, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 """K1's plain version and the port's decoder transformer block against JAX (CPU).
 
 The JAX side is the Pallas kernel `fused_attention`, run in interpret mode (its
-default off the TPU). Bars are those of tests/test_attention_pallas.py: f32
-atol/rtol 1e-5, bf16 2e-2. The CUDA kernel itself is held against
-`attention_plain` on the card by chip_smoke.py.
+default off the TPU), and for the row log-sum-exp that K1 hands its backward,
+`jax.nn.logsumexp` of the scores. Bars are those of
+tests/test_attention_pallas.py: f32 atol/rtol 1e-5, bf16 2e-2. The CUDA kernel
+itself is held against `attention_plain` on the card by chip_smoke.py.
 """
 
 import jax
@@ -15,7 +16,12 @@ import torch
 from matcha_tpu.ops.attention_pallas import fused_attention
 from matcha_tpu_torch.compat import jax_params
 from matcha_tpu_torch.nn.transformer import BasicTransformerBlock
-from matcha_tpu_torch.ops.attention import attention, attention_plain
+from matcha_tpu_torch.ops.attention import (
+    attention,
+    attention_forward,
+    attention_plain,
+    key_splits,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,6 +57,59 @@ def test_attention_plain_matches_pallas(dtype, tol, t, with_bias):
     assert got.dtype == tdt
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("t", [64, 200])
+def test_attention_plain_lse_matches_jax_logsumexp(t, with_bias):
+    """The lse K1 writes for its backward: logsumexp over keys of
+    q k^T * scale + bias, f32 (1e-5)."""
+    b, h, d = 2, 4, 64
+    rng = np.random.default_rng(t + 1)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3))
+    bias = _ragged_bias(rng, b, t) if with_bias else np.zeros((b, t), np.float32)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(k),
+                   precision=jax.lax.Precision.HIGHEST) * d ** -0.5
+    want = jax.nn.logsumexp(s + jnp.asarray(bias)[:, None, None, :], axis=-1)
+    o, lse = attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                             torch.from_numpy(bias) if with_bias else None, d ** -0.5,
+                             with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, t)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(o, attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                                  torch.from_numpy(bias) if with_bias else None,
+                                                  d ** -0.5), rtol=0, atol=0)
+
+
+def test_attention_forward_with_lse_on_cpu_is_plain():
+    q, k, v = (torch.randn(2, 2, 40, 64, generator=torch.Generator().manual_seed(i))
+               for i in range(3))
+    before = attention.launches
+    got = attention_forward(q, k, v, None, 0.125, with_lse=True)
+    want = attention_plain(q, k, v, None, 0.125, with_lse=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,b,t,want", [
+    ("bfloat16", 1, 1024, 2),   # low-latency request at budget 1024: 64 blocks, 132 SMs
+    ("bfloat16", 1, 512, 4),    # its second U-Net level: 32 blocks of 8 key tiles
+    ("bfloat16", 4, 512, 1),    # batch 4 at budget 512: 128 blocks, about a wave
+    ("bfloat16", 4, 256, 1),    # its second level: 64 blocks of only 4 key tiles
+    ("bfloat16", 1, 64, 1),     # one key tile: nothing to split
+    ("bfloat16", 16, 448, 1),   # training at batch 16: 448 blocks, more than a wave
+    ("float32", 1, 1024, 4),    # f32 splits up to two waves,
+    ("float32", 4, 512, 2),
+    ("float32", 4, 256, 2),     # and blocks of 4 key tiles
+    ("float32", 2, 1000, 2),    # 128 blocks of 16 tiles: two waves hold 2 splits
+    ("float32", 16, 448, 1),
+])
+def test_key_splits_fill_the_card(dtype, b, t, want):
+    """K1 splits the keys of blocks that walk many key tiles (8 in bf16, 4 in
+    f32) into a power of two of ranges of at least 2 tiles, while the grid
+    stays within one (bf16) or two (f32) waves of an H100's 132 SMs."""
+    assert key_splits(b, 4, t, getattr(torch, dtype), 132) == want
 
 
 def test_attention_wrapper_takes_plain_path_on_cpu():

@@ -69,7 +69,8 @@ lengths = torch.empty(2, dtype=torch.int32, device="meta")
 for call in (lambda: attention(q, q, q, None, 0.125),
              lambda: mrf_step(torch.empty(1, 8, 16, device="meta"), w, b, w, b, 1),
              lambda: mas.maximum_path(value, value, lengths, lengths),
-             lambda: attention_backward(q, q, q, None, q, 0.125)):
+             lambda: attention_backward(q, q, q, None, q, q,
+                                        torch.empty(1, 4, 8, device="meta"), 0.125)):
     try:
         call()
     except ValueError as e:
