@@ -32,8 +32,7 @@ PyTorch built for CUDA. In order:
    plain version and times the kernel, its plain version and the matching
    PyTorch call, beside the least time the card could take; times K1 and K4
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
-   T=448 in both dtypes, and K1 at the serving shapes with its keys split
-   over 1 to 8 blocks; times training micro-steps at batch 16 and profiles
+   T=448 in both dtypes; times training micro-steps at batch 16 and profiles
    one in each precision.
 
 Prints one JSON line per result; the last line is
@@ -734,8 +733,11 @@ def time_training_kernels(dev, mcfg, seed, batches, reps=20):
 
 
 def attention_fwd_row(q, k, v, bias, scale, with_lse, reps):
-    """K1 at one shape: held against its plain version (o, and lse when the
-    path writes it), then timed beside its plain version and SDPA; the work."""
+    """K1 at one shape: held against its plain version (o and lse), then timed
+    beside its plain version and SDPA, with lse when the path writes it; the
+    work. The bytes are the function's own: q, k, v and the bias in, o out.
+    The lse a training forward writes is the backward's design, not the
+    attention's, and is left out of the bound."""
     from matcha_tpu_torch.ops.attention import attention_cuda, attention_plain
 
     b, h, t, d = q.shape
@@ -748,7 +750,7 @@ def attention_fwd_row(q, k, v, bias, scale, with_lse, reps):
               for g, w, what in zip(got, want, ("o", "lse")))
     mask = None if bias is None else bias[:, None, None, :]
     return {"max_abs_err": err, "flops": 4 * b * h * t * t * d,
-            "bytes": (4 * b * h * t * d + b * t) * elt + (b * h * t * 4 if with_lse else 0),
+            "bytes": (4 * b * h * t * d + b * t) * elt,
             "ms": cuda_ms(lambda: attention_cuda(q, k, v, bias, scale, with_lse), reps),
             "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, bias, scale, with_lse), reps),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -758,8 +760,10 @@ def attention_fwd_row(q, k, v, bias, scale, with_lse, reps):
 def attention_bwd_row(q, k, v, bias, scale, gen, reps):
     """K4 at one shape, without dbias (the decoder's mask takes no gradient):
     held against its plain version on the plain forward's (o, lse), then
-    timed beside its plain version and SDPA's backward; the work (5 products,
-    q, k, v, do, o, lse and the bias in, dq, dk, dv out)."""
+    timed beside its plain version and SDPA's backward; the work the gradient
+    needs: 5 products, q, k, v, do and the bias in, dq, dk, dv out. The o and
+    lse the kernel reads (and the D it writes and reads back) are its design's
+    traffic, not the gradient's, and are left out of the bound."""
     from matcha_tpu_torch.ops.attention import (attention_bwd_cuda, attention_bwd_plain,
                                                 attention_plain)
 
@@ -775,7 +779,7 @@ def attention_bwd_row(q, k, v, bias, scale, gen, reps):
     out = F.scaled_dot_product_attention(
         *leaves, attn_mask=None if bias is None else bias[:, None, None, :], scale=scale)
     return {"max_abs_err": diff, "max_err_of_max_grad": rel, "flops": 10 * b * h * t * t * d,
-            "bytes": (8 * b * h * t * d + b * t) * elt + b * h * t * 4,
+            "bytes": (7 * b * h * t * d + b * t) * elt,
             "ms": cuda_ms(lambda: attention_bwd_cuda(q, k, v, bias, do, o, lse, scale, False),
                           reps),
             "plain_ms": cuda_ms(lambda: attention_bwd_plain(q, k, v, bias, do, o, lse, scale),
@@ -809,38 +813,6 @@ def time_attention_per_call(dev, seed, reps=20):
                 log(f"{name} a call {row['dtype']} {row['shape']}: {row['ms']:.4f} ms, SDPA "
                     f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
                     f"{row['bound_ms']:.5f}")
-    return out
-
-
-def time_key_splits(dev, seed, reps=20):
-    """K1 a call at the serving shapes with its keys split over every count
-    of blocks from 1 to 8, each held against the plain version: the
-    measurement behind `key_splits`. Not on the main path."""
-    from unittest import mock
-
-    from matcha_tpu_torch.ops import attention as attention_ops
-
-    gen = torch.Generator(device=dev).manual_seed(seed + 9)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = []
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        for b, t in PER_CALL_SHAPES[:4]:
-            q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen,
-                                             [t - 37 * (i % 2) for i in range(b)])
-            want = attention_ops.attention_plain(q, k, v, bias, 0.125)
-            ms = {}
-            for s in range(1, min(8, -(-t // 64)) + 1):
-                with mock.patch.object(attention_ops, "key_splits", lambda *a, s=s: s):
-                    max_err_within(attention_ops.attention_cuda(q, k, v, bias, 0.125), want,
-                                   *TOL[name], f"K1 {name} B={b} T={t} split {s}")
-                    ms[s] = cuda_ms(lambda: attention_ops.attention_cuda(q, k, v, bias, 0.125),
-                                    reps)
-            chosen = attention_ops.key_splits(b, 4, t, dtype, sms)
-            out.append({"dtype": name, "shape": [b, 4, t, 64], "ms_by_splits": ms,
-                        "chosen": chosen})
-            log(f"K1 {name} [{b}, 4, {t}, 64] ms by key splits "
-                f"{ {s: round(x, 4) for s, x in ms.items()} }, key_splits chose {chosen}")
     return out
 
 
@@ -1127,7 +1099,6 @@ def main(argv=None) -> int:
                                               training_batches(mcfg)).items():
             rows.setdefault(name, []).extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
-        splits = time_key_splits(dev, args.seed)
         steps = time_micro_steps(dev, mcfg, args.seed, Path(tmp))
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                               for req, b, budget, _ in requests) + ", bf16"
@@ -1142,7 +1113,7 @@ def main(argv=None) -> int:
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "engine": engine,
          "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows,
-         "attention_per_call": per_call, "key_splits": splits, **line},
+         "attention_per_call": per_call, **line},
         indent=1))
     log(line)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

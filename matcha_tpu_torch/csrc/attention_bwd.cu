@@ -17,8 +17,10 @@
 // element has one writer, so there are no atomics and the gradients are
 // deterministic. dbias leaves per head, (B*H, T) f32; the wrapper sums heads.
 //
-// Bound: 10*B*H*T^2*D flops against about 8*B*H*T*D elements moved, so
-// operations. Design as K1 (attention_tiles.cuh): 4 warps a block, the
+// Bound: 10*B*H*T^2*D flops against the 7*B*H*T*D elements the gradient
+// moves (q, k, v, do in; dq, dk, dv out), so operations at the decoder's T.
+// The o and lse read here and the D written are this design's traffic, not
+// the gradient's, and stay out of the bound. Design as K1 (attention_tiles.cuh): 4 warps a block, the
 // block's own two tiles and a cp.async ring of streamed tiles in shared
 // memory (3 stages in bf16, 2 in f32), one swizzled [row][d] layout read by
 // ldmatrix / ldmatrix.trans and mma.sync m16n8k16 in bf16, three TF32 mma.sync

@@ -105,7 +105,7 @@ def key_splits(b: int, h: int, t: int, dtype: torch.dtype, sms: int) -> int:
     """Key ranges per query tile of K1, a power of two of at least 2 key
     tiles each, for a card of `sms` SMs. A split costs a cluster barrier and
     a combine, so it pays only where each block walks many tiles on a grid
-    that leaves SMs idle. Measured on the H100 (`chip_smoke.time_key_splits`):
+    that leaves SMs idle. Measured on the H100 (`tools/tune_key_splits.py`):
     bf16 gains from splitting blocks of 8 tiles or more, up to one wave;
     f32, whose tiles carry three TF32 products, from 4 tiles, up to two."""
     tiles = -(-t // _TILE)
