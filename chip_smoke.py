@@ -11,8 +11,9 @@ PyTorch built for CUDA. In order:
 2. holds each kernel against its plain PyTorch version on the card:
    K1 (attention, output and row log-sum-exp) at B=2, H=4, T in {128, 1000,
    1024} and at B=1, T in {512, 1024} (the key-split path), D=64 with a
-   ragged 0/1 bias, K2 (MRF step) at every (C, k, d) of the generator at a T
-   that is no multiple of a tile, both in float32 and bf16; K3a and K3b (MAS)
+   ragged 0/1 bias, K2 (MRF step) at every (C, k, d) of the generator at
+   B=2, T=4099 (prime) and B=1, T in {1, 7, 8192}, both in float32 and bf16;
+   K3a and K3b (MAS)
    bit-equal at B=16, Tx in {1, 45, 64, 256}, Ty in {45, 448, 1024}; K4
    (attention backward, dbias included) in float32 and bf16 at the shapes of
    K1, fed the plain forward's (o, lse) and once K1's own;
@@ -32,8 +33,10 @@ PyTorch built for CUDA. In order:
    plain version and times the kernel, its plain version and the matching
    PyTorch call, beside the least time the card could take; times K1 and K4
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
-   T=448 in both dtypes; times training micro-steps at batch 16 and profiles
-   one in each precision.
+   T=448 in both dtypes; times K2 at every (C, T, k, d) of a 1024-frame
+   request and of a batch of 4 at 512, in both dtypes, beside its plain
+   version, the unfused PyTorch sequence and its bound, summed by stage;
+   times training micro-steps at batch 16 and profiles one in each precision.
 
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -220,6 +223,9 @@ def mrf_inputs(b, c, t, k, dtype, dev, gen):
 
 # (B, T) of the K1 and K4 checks: B = 1 at T = 512 and 1024 takes K1's key split
 ATTENTION_CHECKS = ((2, 128), (2, 1000), (2, 1024), (1, 512), (1, 1024))
+# (B, T) of the K2 checks at every (C, k, d): a prime T (no vector loads, a
+# ragged last tile), one frame, fewer frames than a halo, and stage 0's batch-1 T
+MRF_CHECKS = ((2, 4099), (1, 1), (1, 7), (1, 8192))
 
 
 def check_kernels(dev, seed):
@@ -259,13 +265,16 @@ def check_kernels(dev, seed):
         for c in (256, 128, 64, 32):
             for k in (3, 7, 11):
                 for d in (1, 3, 5):
-                    args = mrf_inputs(2, c, 4099, k, dtype, dev, gen)  # 4099: prime
-                    got = mrf_step_cuda(*args, d)
-                    torch.cuda.synchronize()
-                    worst = max(worst, max_err_within(got, mrf_step_plain(*args, d), atol, rtol,
-                                                      f"K2 {name} C={c} k={k} d={d}"))
+                    for b, t in MRF_CHECKS:
+                        args = mrf_inputs(b, c, t, k, dtype, dev, gen)
+                        got = mrf_step_cuda(*args, d)
+                        torch.cuda.synchronize()
+                        worst = max(worst, max_err_within(
+                            got, mrf_step_plain(*args, d), atol, rtol,
+                            f"K2 {name} B={b} T={t} C={c} k={k} d={d}"))
         errs["mrf_step"][name] = {"max_abs_err": worst, "atol": atol, "rtol": rtol}
-        log(f"K2 mrf_step {name}: max abs err {worst:.3g} (tolerance atol {atol} rtol {rtol})")
+        log(f"K2 mrf_step {name}: max abs err {worst:.3g} at (B, T) in {list(MRF_CHECKS)} "
+            f"(tolerance atol {atol} rtol {rtol})")
     return errs
 
 
@@ -816,6 +825,73 @@ def time_attention_per_call(dev, seed, reps=20):
     return out
 
 
+def mrf_step_unfused(x, w1, b1, w2, b2, dilation):
+    """The dilation step as separate PyTorch calls in x's dtype (lrelu, cuDNN
+    conv1d, lrelu, conv1d, add): K2's yardstick, since no one call computes it."""
+    k = w1.shape[-1]
+    h = F.conv1d(F.leaky_relu(x, 0.1), w1, b1, padding=dilation * (k - 1) // 2,
+                 dilation=dilation)
+    return x + F.conv1d(F.leaky_relu(h, 0.1), w2, b2, padding=(k - 1) // 2)
+
+
+def mrf_work(b, c, t, k, elt):
+    """(flops, bytes) of one dilation step: two convs of C*C*k taps a frame; x
+    in, out out, both weights and biases in."""
+    return 4 * b * c * c * k * t, (2 * b * c * t + 2 * c * c * k + 2 * c) * elt
+
+
+# (request, batch, budget) of the per-stage table: a low-latency request at
+# 1024 mel frames and a batch of 4 at 512
+MRF_STAGE_REQUESTS = (("lowlatency", 1, 1024), ("synthesise", 4, 512))
+
+
+def time_mrf_per_stage(dev, hcfg, seed, reps=5):
+    """K2 at every (C, T, k, d) of the two serving requests, in bf16 and f32:
+    held against its plain version, then timed beside the plain version and
+    the unfused PyTorch sequence in the same dtype (`unfused_ms`), with the
+    bound. Sums by stage (C) per request and dtype. Not on the main path:
+    these launches count toward no path."""
+    from matcha_tpu_torch.ops.mrf import mrf_step_cuda, mrf_step_plain, pack_weights
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    rows, stages = [], {}
+    for req, b, budget in MRF_STAGE_REQUESTS:
+        for c, t, k, dil in mrf_shapes(hcfg, budget):
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[1]
+                atol, rtol = TOL_MRF_F32 if dtype == torch.float32 else TOL[name]
+                args = mrf_inputs(b, c, t, k, dtype, dev, gen)
+                packed = pack_weights(args[1], args[3])
+                err = max_err_within(mrf_step_cuda(*args, dil, packed),
+                                     mrf_step_plain(*args, dil), atol, rtol,
+                                     f"K2 {name} {req} {[b, c, t]} k={k} d={dil}")
+                flops, nbytes = mrf_work(b, c, t, k, args[0].element_size())
+                row = {"request": req, "dtype": name, "shape": [b, c, t], "k": k, "d": dil,
+                       "max_abs_err": err,
+                       "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
+                       "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
+                       "unfused_ms": cuda_ms(lambda: mrf_step_unfused(*args, dil), reps),
+                       "bound_ms": max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3,
+                       "bound_by": ("operations" if flops / PEAK_FLOPS[dtype]
+                                    >= nbytes / PEAK_BYTES else "bytes")}
+                del args, packed
+                rows.append(row)
+                s = stages.setdefault(f"{req} {name} C={c}", {
+                    "request": req, "dtype": name, "C": c, "T": t, "batch": b, "launches": 0,
+                    "ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "bound_ms": 0.0})
+                s["launches"] += 1
+                for key in ("ms", "plain_ms", "unfused_ms", "bound_ms"):
+                    s[key] += row[key]
+                log(f"K2 stage {req} {name} {[b, c, t]} k={k} d={dil}: {row['ms']:.4f} ms, "
+                    f"unfused {row['unfused_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+                    f"{row['bound_ms']:.5f} ({row['bound_by']}), max abs err {err:.3g}")
+    for s in stages.values():
+        log(f"K2 by stage {s['request']} {s['dtype']} C={s['C']} (B={s['batch']}, T={s['T']}, "
+            f"{s['launches']} launches): {s['ms']:.4f} ms, unfused {s['unfused_ms']:.4f}, "
+            f"plain {s['plain_ms']:.4f}, bound {s['bound_ms']:.4f}")
+    return {"rows": rows, "stages": list(stages.values())}
+
+
 def train_card_vs_cpu(dev, mcfg, seed):
     """One full-width `compute_losses` plus backward at b = 2 (Tx = 10, Ty = 24)
     in float32 on the card and on the CPU: same weights, injected (t, z),
@@ -931,9 +1007,10 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
     """At every shape the main path gave K1 and K2 (bf16): the kernel against
     its plain version, then per-launch kernel, plain and library times and
     each launch's bound."""
-    from matcha_tpu_torch.ops.mrf import mrf_step_cuda, mrf_step_plain, pack_weights
+    from matcha_tpu_torch.ops.mrf import mrf_plan, mrf_step_cuda, mrf_step_plain, pack_weights
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     dcfg, bf16, elt = mcfg.decoder, torch.bfloat16, 2
     atol, rtol = TOL["bfloat16"]
     h, d = dcfg.num_heads, dcfg.attention_head_dim
@@ -952,15 +1029,16 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
             packed = pack_weights(args[1], args[3])  # once, as ResBlock1 packs its weights
             err = max_err_within(mrf_step_cuda(*args, dil, packed), mrf_step_plain(*args, dil),
                                  atol, rtol, f"K2 bf16 {req} {[b, c, t]} k={k} d={dil}")
+            flops, nbytes = mrf_work(b, c, t, k, elt)
             rows["mrf_step"].append({
                 "path": "serve", "dtype": "bfloat16", "peak_flops": PEAK_BF16_FLOPS,
                 "request": req, "shape": [b, c, t], "k": k, "d": dil, "count": 1, "launches": 1,
-                "max_abs_err": err,
-                "flops": 4 * b * c * c * k * t,
-                "bytes": (2 * b * c * t + 2 * c * c * k + 2 * c) * elt,
+                "max_abs_err": err, "flops": flops, "bytes": nbytes,
                 "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
                 "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
-                "library_ms": None})
+                "library_ms": None,
+                # the launch's tiling; its shared memory is dynamic, so ptxas does not show it
+                "plan": mrf_plan(b, c, t, k, dil, elt, sms).__dict__})
     log_rows(rows)
     for name, rs in rows.items():
         log(f"{name} bf16 at the serving path's shapes: max abs err "
@@ -975,9 +1053,10 @@ def log_rows(rows):
             r["bound_ms"] = max(r["flops"] / r["peak_flops"], r["bytes"] / PEAK_BYTES) * 1e3
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f}"
             kd = f" k={r['k']} d={r['d']}" if "k" in r else ""
+            plan = f", plan {r['plan']}" if "plan" in r else ""
             log(f"{name} {r['path']} {r.get('request', '')} {r['dtype']} {r['shape']}{kd} "
                 f"x{r['count']}: {r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f}{lib}, "
-                f"bound {r['bound_ms']:.5f}, max abs err {r['max_abs_err']:.3g}")
+                f"bound {r['bound_ms']:.5f}, max abs err {r['max_abs_err']:.3g}{plan}")
 
 
 SOURCES = {
@@ -1030,18 +1109,35 @@ def kernel_line(rows, errs, launches, work):
     return {"kernels": kernels}
 
 
+def kernel_name(mangled):
+    """A kernel's name from its mangled entry, with its template arguments
+    (element type and integers): the length-prefixed identifier ending in
+    `_kernel`."""
+    for m in re.finditer(r"_kernel", mangled):
+        end = m.end()
+        for start in range(end - 1, 0, -1):  # the digits before the identifier give its length
+            digits = re.search(r"\d+$", mangled[:start])
+            if digits and digits.group().endswith(str(end - start)):
+                ident, rest = mangled[start:end], mangled[end:]
+                if not rest.startswith("I"):
+                    return ident
+                dtype = re.match(r"I(f|13__nv_bfloat16)?", rest).group(1)
+                targs = ([{"f": "float", "13__nv_bfloat16": "bf16"}[dtype]] if dtype else []) \
+                    + re.findall(r"Li(\d+)E", rest.split("EE", 1)[0] + "E")
+                return f"{ident}<{', '.join(targs)}>"
+    return mangled
+
+
 def kernel_resources(build_log):
     """[(kernel, ptxas's registers and shared memory line)] from an `nvcc
-    -Xptxas -v` log; a template's kernel is named with its element type."""
+    -Xptxas -v` log, with ptxas's spill lines."""
     out, kernel = [], "?"
     for line in build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = re.search(r"\d([a-z][a-z_]*_kernel)(I(f|13__nv_bfloat16)E)?", entry.group(1))
-            kernel = entry.group(1) if name is None else name.group(1) + (
-                {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(name.group(3), ""))
-        elif "Used" in line:
-            out.append((kernel, line.split(":", 1)[1].strip()))
+            kernel = kernel_name(entry.group(1))
+        elif "Used" in line or "spill" in line:
+            out.append((kernel, line.split(":", 1)[-1].strip()))
     return out
 
 
@@ -1099,6 +1195,7 @@ def main(argv=None) -> int:
                                               training_batches(mcfg)).items():
             rows.setdefault(name, []).extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
+        mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
         steps = time_micro_steps(dev, mcfg, args.seed, Path(tmp))
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                               for req, b, budget, _ in requests) + ", bf16"
@@ -1113,7 +1210,7 @@ def main(argv=None) -> int:
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "engine": engine,
          "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows,
-         "attention_per_call": per_call, **line},
+         "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))
     log(line)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
