@@ -13,8 +13,11 @@ PyTorch built for CUDA. In order:
    1024} and at B=1, T in {512, 1024} (the key-split path), D=64 with a
    ragged 0/1 bias, K2 (MRF step) at every (C, k, d) of the generator at
    B=2, T=4099 (prime) and B=1, T in {1, 7, 8192}, both in float32 and bf16;
-   K3a and K3b (MAS)
-   bit-equal at B=16, Tx in {1, 45, 64, 256}, Ty in {45, 448, 1024}; K4
+   the fused MAS kernel (K3a and K3b in one launch) bit-equal to the plain
+   version, its path and its decisions, at B=16, Tx in {1, 45, 64, 256}, Ty
+   in {45, 448, 1024}, at Tx = Ty = 1024, with a bf16 value (f32 and bf16
+   masks) and with a mask with holes; one `maximum_path` call profiled (one
+   CUDA kernel); the DP chain's step latency L measured by a probe; K4
    (attention backward, dbias included) in float32 and bf16 at the shapes of
    K1, fed the plain forward's (o, lse) and once K1's own;
 3. the serving path: `TTSEngine` at full width (MatchaConfig() and HiFi-GAN
@@ -66,7 +69,8 @@ ROOT = Path(__file__).resolve().parent
 # the tensor cores, and HBM3 bandwidth. The attention kernels compute their
 # float32 products as three TF32 tensor-core products (f32 accuracy), so the
 # least time for f32-accurate products there is at a third of the dense TF32
-# rate, 495/3 TFLOP/s; the MAS kernels do float32 work on the CUDA cores.
+# rate, 495/3 TFLOP/s; MAS does float32 work on the CUDA cores and is bound
+# by its chain of dependent frames (`chain_step_ns`).
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F32_3XTF32_FLOPS = 495e12 / 3
@@ -292,22 +296,89 @@ def mas_inputs(b, tx, ty, dev, gen, full_first=True):
 
 
 def check_mas(value, mask, t_x, t_y, what):
-    """K3a's bits and K3b's path bit-equal to the plain version's on the same scores."""
+    """The fused MAS kernel bit-equal to the plain version: its path (dtype
+    included) to `maximum_path_plain`'s, its decisions (`bits_out`) to
+    `mas_forward_plain`'s on the same scores, and `maximum_path` to both."""
     from matcha_tpu_torch.ops import mas
 
-    tx = value.shape[1]
-    score = (value * mask).transpose(1, 2).contiguous()
+    want = mas.maximum_path_plain(value, mask, t_x, t_y)
+    path, words = mas.mas_cuda(value, mask, t_x, t_y, with_bits=True)
+    score = (value * mask).float().transpose(1, 2).contiguous()
     bits = mas.mas_forward_plain(score, t_x, t_y)
-    got = mas.unpack_words(mas.mas_forward(score, t_x, t_y), tx)
+    got = mas.unpack_words(words, value.shape[1])
     frames = torch.arange(score.shape[1], device=score.device)[None, :, None] < t_y[:, None, None]
     if not torch.equal(got & frames, bits & frames):
-        raise AssertionError(f"K3a {what}: take-diagonal bits differ from the plain version")
-    want = mas.mas_backtrack_plain(bits, t_x, t_y)
-    if not torch.equal(mas.mas_backtrack(mas.pack_words(bits), t_x, t_y, tx), want):
-        raise AssertionError(f"K3b {what}: path differs from the plain version")
-    if not torch.equal(mas.maximum_path(value, mask, t_x, t_y), want * mask):
-        raise AssertionError(f"K3a+K3b {what}: maximum_path differs from the plain version")
+        raise AssertionError(f"MAS {what}: take-diagonal bits differ from the plain version "
+                             f"(a fault of the DP)")
+    if path.dtype != want.dtype or not torch.equal(path, want):
+        raise AssertionError(f"MAS {what}: path differs from the plain version "
+                             f"(a fault of the walk back or the output)")
+    if not torch.equal(mas.maximum_path(value, mask, t_x, t_y), want):
+        raise AssertionError(f"MAS {what}: maximum_path differs from the plain version")
     return want
+
+
+def mas_checks(dev, gen):
+    """(what, (value, mask, t_x, t_y)) of the fused MAS kernel's checks besides
+    the 12 training shapes: Tx = Ty = 1024 (32 cells a lane, 2 stages), bf16
+    values with f32 and bf16 masks (some mask cells at 0.3, so that a bf16
+    product rounds), and masks with holes (not an outer product of the
+    lengths), at a vector-load shape and at an odd Ty (element loads)."""
+    out = [("B=16 Tx=1024 Ty=1024", mas_inputs(16, 1024, 1024, dev, gen))]
+    value, mask, t_x, t_y = mas_inputs(16, 64, 448, dev, gen)
+    frac = torch.where(torch.rand(mask.shape, generator=gen, device=dev) < 0.2, 0.3, 1.0) * mask
+    out += [("bf16 value, f32 mask", (value.bfloat16(), frac, t_x, t_y)),
+            ("bf16 value, bf16 mask", (value.bfloat16(), frac.bfloat16(), t_x, t_y))]
+    for b, tx, ty in ((16, 64, 448), (16, 45, 45)):
+        value, mask, t_x, t_y = mas_inputs(b, tx, ty, dev, gen)
+        holes = mask * (torch.rand(mask.shape, generator=gen, device=dev) > 0.15)
+        out.append((f"mask with holes B={b} Tx={tx} Ty={ty}", (value, holes, t_x, t_y)))
+    return out
+
+
+def profile_mas_call(dev, seed):
+    """One `maximum_path` call at B = 16, Tx = 64, Ty = 448 under torch.profiler:
+    it must run exactly one CUDA kernel, the fused one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tpu_torch.ops.mas import maximum_path
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    value, mask, t_x, t_y = mas_inputs(16, 64, 448, dev, gen)
+    maximum_path(value, mask, t_x, t_y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        maximum_path(value, mask, t_x, t_y)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(names) != 1 or "mas_path" not in names[0]:
+        raise AssertionError(f"one maximum_path call ran CUDA kernels {names}, not the one "
+                             f"fused kernel")
+    log(f"maximum_path at B=16 Tx=64 Ty=448 under the profiler: 1 CUDA kernel, {names[0][:60]}")
+    return {"cuda_kernels": names}
+
+
+def chain_step_ns(dev, steps=(20_000, 40_000), reps=5):
+    """L, the latency of one dependent DP step on one warp (a shuffle, a
+    compare and select, an add), from `mas.chain_probe` at two step counts
+    (CUDA events, the fastest of `reps` each): the slope, in ns."""
+    from matcha_tpu_torch.ops.mas import chain_probe
+
+    def best_ms(n):
+        chain_probe(n, dev)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            chain_probe(n, dev)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return min(times)
+
+    t1, t2 = best_ms(steps[0]), best_ms(steps[1])
+    return (t2 - t1) / (steps[1] - steps[0]) * 1e6
 
 
 def grad_err(got, want, what, tol):
@@ -329,25 +400,30 @@ def grad_err(got, want, what, tol):
 
 
 def check_training_kernels(dev, seed):
-    """K3a and K3b bit-equal to their plain version at B = 16, Tx in {1, 45, 64,
-    256}, Ty in {45, 448, 1024}; K4 in f32 and bf16 against its plain version at
-    the shapes of K1's check, ragged bias (dbias too) and none: both fed the
-    plain forward's (o, lse), and K4 once more fed K1's own."""
+    """The fused MAS kernel bit-equal to its plain version at B = 16, Tx in {1,
+    45, 64, 256}, Ty in {45, 448, 1024} and at `mas_checks`; K4 in f32 and bf16
+    against its plain version at the shapes of K1's check, ragged bias (dbias
+    too) and none: both fed the plain forward's (o, lse), and K4 once more fed
+    K1's own."""
     from matcha_tpu_torch.ops.attention import (attention_bwd_cuda, attention_bwd_plain,
                                                 attention_cuda, attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
-    errs = {"mas_forward": {}, "mas_backtrack": {}, "attention_bwd": {}}
+    errs = {"mas": {}, "attention_bwd": {}}
     n = 0
     for tx in (1, 45, 64, 256):
         for ty in (45, 448, 1024):
             check_mas(*mas_inputs(16, tx, ty, dev, gen), f"B=16 Tx={tx} Ty={ty}")
             n += 1
+    checks = mas_checks(dev, gen)
+    for what, args in checks:
+        check_mas(*args, what)
     torch.cuda.synchronize()
-    for name in ("mas_forward", "mas_backtrack"):
-        errs[name]["bit_equal"] = {"max_abs_err": 0.0, "shapes": n}
-    log(f"K3a, K3b: bit-equal to the plain version at {n} shapes (B=16, Tx in 1/45/64/256, "
-        f"Ty in 45/448/1024)")
+    errs["mas"]["bit_equal"] = {"max_abs_err": 0.0, "shapes": n + len(checks),
+                                "checks": [what for what, _ in checks]}
+    log(f"MAS (K3a + K3b fused): path and decisions bit-equal to the plain version at {n} "
+        f"shapes (B=16, Tx in 1/45/64/256, Ty in 45/448/1024) and at "
+        f"{[what for what, _ in checks]}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tol = TOL_BWD[name]
@@ -457,7 +533,7 @@ def serve_main_path(dev, mcfg, hcfg, seed):
 
 # (group, substring of the kernel's name), first match wins
 KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
-                 ("K3a mas_forward", "mas_forward"), ("K3b mas_backtrack", "mas_backtrack"),
+                 ("K3a+K3b mas", "mas_path"),
                  ("K4 attention_bwd", "attn_bwd"),
                  ("convolution", "conv"),
                  ("convolution", "fprop"), ("convolution", "dgrad"),
@@ -590,8 +666,8 @@ def launch_counters():
     from matcha_tpu_torch.ops.attention import attention, attention_backward
     from matcha_tpu_torch.ops.mrf import mrf_step
 
-    return {"attention_fwd": attention, "mrf_step": mrf_step, "mas_forward": mas.mas_forward,
-            "mas_backtrack": mas.mas_backtrack, "attention_bwd": attention_backward}
+    return {"attention_fwd": attention, "mrf_step": mrf_step, "mas": mas.mas_cuda,
+            "attention_bwd": attention_backward}
 
 
 def read_metrics(ckpt_dir):
@@ -604,8 +680,8 @@ def train_main_path(dev, mcfg, seed, root):
     """`Trainer.fit` at full width on 64 synthetic items: one epoch in fp32, one in
     bf16, then the bf16 run resumed for a second epoch. The launch counts are
     set to 0 just before and read just after, and must be as derived: per
-    micro-step K3a 1, K3b 1, K1 6 and K4 12 (6 backward calls of 2 launches),
-    per validation batch K3a 1, K3b 1, K1 6."""
+    micro-step MAS 1 (K3a and K3b fused), K1 6 and K4 12 (6 backward calls of
+    2 launches), per validation batch MAS 1, K1 6."""
     from matcha_tpu_torch.data.dataset import num_batches
     from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -633,8 +709,7 @@ def train_main_path(dev, mcfg, seed, root):
     val_batches = num_batches(VAL_ITEMS, dcfg, drop_last=False)
     epochs = len(TRAIN_RUNS)  # each run trains one epoch (the third resumes at epoch 1)
     n_attn = sum(n for n, _ in attention_shapes(mcfg.decoder, 1))
-    want = {"mas_forward": epochs * (micro + val_batches),
-            "mas_backtrack": epochs * (micro + val_batches),
+    want = {"mas": epochs * (micro + val_batches),
             "attention_fwd": epochs * (micro + val_batches) * n_attn,
             "attention_bwd": epochs * micro * n_attn * 2}
     log(f"training path launches {counts} (expected {want})")
@@ -673,56 +748,79 @@ def mask_rows(y_lengths, frames, dev):
     return torch.arange(frames, device=dev)[None, :] < y_lengths.to(dev)[:, None]
 
 
-def time_training_kernels(dev, mcfg, seed, batches, reps=20):
-    """At every shape the training path gave K1, K3a, K3b and K4: the kernel
-    against its plain version, then kernel, plain and library times and the
-    bound. Inputs are random at the path's shapes and lengths (a MAS's time
-    does not depend on its scores)."""
+def mas_keys(batches):
+    """{(Tx, Ty, t_x, t_y): calls} of the MAS calls of `training_batches`, one a
+    batch (lengths as tuples)."""
+    keys = {}
+    for _, _, b in batches:
+        key = (b["x"].shape[1], b["y"].shape[1], tuple(b["x_lengths"].tolist()),
+               tuple(b["y_lengths"].tolist()))
+        keys[key] = keys.get(key, 0) + 1
+    return keys
+
+
+def mas_batch_inputs(key, dev, gen):
+    """value (log-prior sized scores), mask and int32 lengths of one MAS call
+    of the training path, from its `mas_keys` key."""
+    tx, ty, t_x, t_y = key
+    t_x = torch.tensor(t_x, device=dev, dtype=torch.int32)
+    t_y = torch.tensor(t_y, device=dev, dtype=torch.int32)
+    value = -1000.0 + 30.0 * torch.randn((len(t_x), tx, ty), generator=gen, device=dev)
+    mask = ((torch.arange(tx, device=dev)[None, :, None] < t_x[:, None, None])
+            & mask_rows(t_y, ty, dev)[:, None, :]).float()
+    return value, mask, t_x, t_y
+
+
+def mas_row(value, mask, t_x, t_y, step_ns, reps):
+    """The fused MAS kernel at one shape: held against its plain version, timed
+    beside it; the work: the function's own bytes (value and mask inside the
+    lengths read, the whole output written, the lengths read; not the
+    decisions, which are the design's) and its chain, max(t_y) dependent
+    steps of `step_ns` each."""
     from matcha_tpu_torch.ops import mas
+
+    b, tx, ty = value.shape
+    check_mas(value, mask, t_x, t_y, f"{value.dtype} {[b, tx, ty]}")
+    lx, ly = t_x.clamp(0, tx).long(), t_y.clamp(0, ty).long()
+    read = int((lx * ly).sum()) * (value.element_size() + mask.element_size())
+    return {"max_abs_err": 0.0, "flops": 0,
+            "bytes": read + b * tx * ty * value.element_size() + 2 * b * 4,
+            "chain_frames": int(ly.max()), "chain_ms": int(ly.max()) * step_ns * 1e-6,
+            "ms": cuda_ms(lambda: mas.mas_cuda(value, mask, t_x, t_y), reps),
+            "plain_ms": events_ms(lambda: mas.maximum_path_plain(value, mask, t_x, t_y), 3),
+            "library_ms": None}
+
+
+def time_training_kernels(dev, mcfg, seed, batches, step_ns, reps=20):
+    """At every shape the training path gave K1, MAS and K4: the kernel against
+    its plain version, then kernel, plain and library times and the bound.
+    Inputs are random at the path's shapes and lengths (a MAS's time does not
+    depend on its scores)."""
 
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     dcfg = mcfg.decoder
     h, d = dcfg.num_heads, dcfg.attention_head_dim
     scale = d ** -0.5
-    groups = {}  # (kernel, key) -> count of calls
+    # (kernel, key) -> count of calls
+    groups = {("mas", key): count for key, count in mas_keys(batches).items()}
     for kind, precision, b in batches:
-        tx, ty = b["x"].shape[1], b["y"].shape[1]
-        lengths = (tuple(b["x_lengths"].tolist()), tuple(b["y_lengths"].tolist()))
-        groups[("mas", (tx, ty) + lengths)] = groups.get(("mas", (tx, ty) + lengths), 0) + 1
+        ty = b["y"].shape[1]
+        y_lengths = tuple(b["y_lengths"].tolist())
         dtype = "bfloat16" if (kind == "train" and precision == "bf16") else "float32"
         for n, t in attention_shapes(dcfg, ty):
             # a training forward writes lse for its backward; validation's does not
-            key = (dtype, t, ty, lengths[1], kind == "train")
+            key = (dtype, t, ty, y_lengths, kind == "train")
             groups[("fwd", key)] = groups.get(("fwd", key), 0) + n
             if kind == "train":
                 groups[("bwd", key)] = groups.get(("bwd", key), 0) + n
-    rows = {"attention_fwd": [], "mas_forward": [], "mas_backtrack": [], "attention_bwd": []}
+    rows = {"attention_fwd": [], "mas": [], "attention_bwd": []}
     for (kind, key), count in groups.items():
         if kind == "mas":
-            tx, ty, t_x, t_y = key[0], key[1], key[2], key[3]
-            b = len(t_x)
-            t_x = torch.tensor(t_x, device=dev, dtype=torch.int32)
-            t_y = torch.tensor(t_y, device=dev, dtype=torch.int32)
-            value = -1000.0 + 30.0 * torch.randn((b, tx, ty), generator=gen, device=dev)
-            mask = ((torch.arange(tx, device=dev)[None, :, None] < t_x[:, None, None])
-                    & mask_rows(t_y, ty, dev)[:, None, :]).float()
-            check_mas(value, mask, t_x, t_y, f"training batch Tx={tx} Ty={ty}")
-            score = (value * mask).transpose(1, 2).contiguous()
-            words = mas.mas_forward(score, t_x, t_y)
-            bits = mas.mas_forward_plain(score, t_x, t_y)
-            n_words, frames = (tx + 31) // 32, int(torch.clamp(t_y, max=ty).sum())
-            shape = [b, tx, ty]
-            common = {"path": "train", "dtype": "float32", "peak_flops": PEAK_F32_FLOPS,
-                      "shape": shape, "count": count, "launches": count, "max_abs_err": 0.0,
-                      "flops": 0, "library_ms": None, "chain_frames": int(t_y.max())}
-            rows["mas_forward"].append(dict(
-                common, bytes=frames * (tx + n_words) * 4 + 2 * b * 4,
-                ms=cuda_ms(lambda: mas.mas_forward(score, t_x, t_y), reps),
-                plain_ms=events_ms(lambda: mas.mas_forward_plain(score, t_x, t_y), 3)))
-            rows["mas_backtrack"].append(dict(
-                common, bytes=frames * n_words * 4 + b * tx * ty * 4 + 2 * b * 4,
-                ms=cuda_ms(lambda: mas.mas_backtrack(words, t_x, t_y, tx), reps),
-                plain_ms=events_ms(lambda: mas.mas_backtrack_plain(bits, t_x, t_y), 3)))
+            value, mask, t_x, t_y = mas_batch_inputs(key, dev, gen)
+            rows["mas"].append(dict(
+                {"path": "train", "dtype": "float32", "peak_flops": PEAK_F32_FLOPS,
+                 "shape": list(value.shape), "count": count, "launches": count},
+                **mas_row(value, mask, t_x, t_y, step_ns, reps)))
             continue
         dtype_name, t, frames, y_lengths, with_lse = key
         dtype = getattr(torch, dtype_name)
@@ -1047,24 +1145,29 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
 
 
 def log_rows(rows):
-    """Set each row's bound and log it: time a call, plain, library, bound."""
+    """Set each row's bound and log it: time a call, plain, library, bound
+    (the larger of operations, bytes and, for MAS, the chain of frames)."""
     for name, rs in rows.items():
         for r in rs:
-            r["bound_ms"] = max(r["flops"] / r["peak_flops"], r["bytes"] / PEAK_BYTES) * 1e3
+            parts = {"operations": r["flops"] / r["peak_flops"] * 1e3,
+                     "bytes": r["bytes"] / PEAK_BYTES * 1e3, "chain": r.get("chain_ms", 0.0)}
+            r["bound_by"] = max(parts, key=parts.get)
+            r["bound_ms"] = parts[r["bound_by"]]
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f}"
             kd = f" k={r['k']} d={r['d']}" if "k" in r else ""
             plan = f", plan {r['plan']}" if "plan" in r else ""
             log(f"{name} {r['path']} {r.get('request', '')} {r['dtype']} {r['shape']}{kd} "
                 f"x{r['count']}: {r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f}{lib}, "
-                f"bound {r['bound_ms']:.5f}, max abs err {r['max_abs_err']:.3g}{plan}")
+                f"bound {r['bound_ms']:.5f} ({r['bound_by']}), max abs err "
+                f"{r['max_abs_err']:.3g}{plan}")
 
 
 SOURCES = {
     "attention_fwd": ("matcha_tpu_torch/csrc/attention_fwd.cu",
                       "matcha_tpu/ops/attention_pallas.py:39"),
     "mrf_step": ("matcha_tpu_torch/csrc/mrf_step.cu", "matcha_tpu/ops/mrf_pallas.py:44"),
-    "mas_forward": ("matcha_tpu_torch/csrc/mas.cu", "matcha_tpu/ops/mas_pallas.py:37"),
-    "mas_backtrack": ("matcha_tpu_torch/csrc/mas.cu", "matcha_tpu/ops/mas_pallas.py:78"),
+    "mas": ("matcha_tpu_torch/csrc/mas.cu",
+            "matcha_tpu/ops/mas_pallas.py:37 and matcha_tpu/ops/mas_pallas.py:78"),
     "attention_bwd": ("matcha_tpu_torch/csrc/attention_bwd.cu",
                       "matcha_tpu/ops/attention_pallas.py:87"),
 }
@@ -1076,7 +1179,8 @@ def kernel_line(rows, errs, launches, work):
 
     rows: kernel -> timed rows, each with its path, `count` calls and the
     `launches` they make; launches: path -> kernel -> count read after that path;
-    work: path -> what the path ran.
+    work: path -> what the path ran. The bound is the largest of its parts
+    (`bound_parts_ms`): operations, bytes, and for MAS the chain of frames.
     """
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1093,16 +1197,17 @@ def kernel_line(rows, errs, launches, work):
                                      f"which made {counts.get(name, 0)}")
             if timed:
                 by_path[path] = timed
-        op_ms = sum(r["count"] * r["flops"] / r["peak_flops"] for r in rs) * 1e3
-        byte_ms = total("bytes") / PEAK_BYTES * 1e3
+        parts = {"operations": sum(r["count"] * r["flops"] / r["peak_flops"] for r in rs) * 1e3,
+                 "bytes": total("bytes") / PEAK_BYTES * 1e3,
+                 "chain": sum(r["count"] * r.get("chain_ms", 0.0) for r in rs)}
+        bound_by = max(parts, key=parts.get)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
             "max_abs_err": max([e["max_abs_err"] for e in errs.get(name, {}).values()]
                                + [r["max_abs_err"] for r in rs]),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "bound_ms": parts[bound_by], "bound_by": bound_by, "bound_parts_ms": parts,
             "library_ms": None if any(r["library_ms"] is None for r in rs) else total("library_ms"),
             "launches_by_path": by_path,
             "work": "; ".join(f"{path}: {work[path]}" for path in by_path)})
@@ -1182,6 +1287,10 @@ def main(argv=None) -> int:
     mcfg, hcfg = MatchaConfig(), HiFiGANConfig()  # full width: Matcha-TTS and HiFi-GAN v1
     errs = check_kernels(dev, args.seed)
     errs.update(check_training_kernels(dev, args.seed))
+    mas_profile = profile_mas_call(dev, args.seed)
+    step_ns = chain_step_ns(dev)
+    log(f"MAS chain step L = {step_ns:.3f} ns (one warp: shuffle, compare and select, add; "
+        f"slope of the probe at 20,000 and 40,000 steps) on {smi}")
     engine = serve_main_path(dev, mcfg, hcfg, args.seed)
     log({"engine": engine})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1191,8 +1300,8 @@ def main(argv=None) -> int:
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
         requests = main_path_requests(engine)
         rows = time_kernels(dev, mcfg, hcfg, args.seed, requests)
-        for name, rs in time_training_kernels(dev, mcfg, args.seed,
-                                              training_batches(mcfg)).items():
+        for name, rs in time_training_kernels(dev, mcfg, args.seed, training_batches(mcfg),
+                                              step_ns).items():
             rows.setdefault(name, []).extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
@@ -1205,10 +1314,14 @@ def main(argv=None) -> int:
                   f"bf16 1 epoch, bf16 resumed for a second (validation in fp32)")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "train": training["launches"]},
                        {"serve": serve_work, "train": train_work})
+    for k in line["kernels"]:
+        if k["name"] == "mas":
+            k["chain_step_ns"] = step_ns
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "checks": errs, "engine": engine,
+        {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
+         "chain_step_ns": step_ns, "engine": engine,
          "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))

@@ -1,26 +1,28 @@
-"""Monotonic alignment search: kernels K3a (forward DP) and K3b (backtrack) and their plain version.
+"""Monotonic alignment search: the fused kernel of K3a (forward DP) and K3b (walk back), and their plain versions.
 
 Replaces the TPU kernels `matcha_tpu/ops/mas_pallas.py::_forward_kernel` and
 `::_backward_kernel` (wrappers `_mas_pallas`, `maximum_path_pallas`); the plain
 version ports `matcha_tpu/ops/mas_ref.py` (the same banded Viterbi DP, the same
 `NEG`, the same tie rule, f32 throughout), so the path is bit-equal to the
-reference's on the same scores.
+reference's on the same scores. `mas_forward_plain` and `mas_backtrack_plain`
+are the plain versions of the two TPU kernels.
 
-The CUDA kernels (`csrc/mas.cu`) run one block per utterance:
-- K3a keeps one DP cell per thread (text positions across threads) and walks
-  the mel frames in order; it writes the take-diagonal decisions as one
-  32-bit ballot word per warp and frame, (B, Ty, ceil(Tx/32)) int32;
-- K3b stages its utterance's words in shared memory, walks the path back on
-  one thread and writes the (B, Tx, Ty) 0/1 path.
-Both are bound by a dependency chain of Ty steps, not by bytes or operations.
+The CUDA kernel (`csrc/mas.cu`) is one launch per alignment, one block per
+utterance: it reads value and mask in their (B, Tx, Ty) layout and forms
+their product as PyTorch does, runs the DP on one warp (text positions in
+registers, a shuffle a frame) while the other warps stream the scores into
+shared memory and write the output's zeros, keeps the decisions in shared
+memory, walks the path back and writes the path cells. It is bound by a
+chain of t_y dependent steps, not by bytes or operations. `mas_plan` sizes
+its shared memory; `chain_probe` measures one step of the chain.
 
 `maximum_path` takes its path from the tensors: the plain version
-(`maximum_path_plain`) for CPU tensors, the kernels for CUDA tensors (or an
-exception). `mas_forward.launches` and `mas_backtrack.launches` count kernel
-launches.
+(`maximum_path_plain`) for CPU tensors, the kernel for CUDA tensors (or an
+exception). `mas_cuda.launches` counts kernel launches.
 """
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -29,7 +31,7 @@ import torch
 from matcha_tpu_torch.ops import _build
 
 NEG = -1e9
-MAX_TEXT = 1024  # one thread per text position, 1024 threads a block
+MAX_TEXT = 1024  # 32 cells a lane of the DP warp
 
 
 def lengths_from_mask(mask: torch.Tensor):
@@ -82,15 +84,77 @@ def mas_backtrack_plain(bits: torch.Tensor, t_x: torch.Tensor, t_y: torch.Tensor
     return torch.stack(rows, dim=2).to(torch.float32)
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+_STAGE_SCORES = 8192  # f32 scores a ring stage holds at most (32 KB)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class MasPlan:
+    """The fused kernel's layout of one launch, as `csrc/mas.cu` derives it
+    (struct Plan): `cells` text positions a DP lane holds (a power of two,
+    32 * cells >= Tx), chunks of `frames` mel frames, a ring of `stages`,
+    `smem` bytes of dynamic shared memory."""
+
+    cells: int
+    frames: int
+    stages: int
+    smem: int
+
+
+def mas_cells(tx: int) -> int:
+    """Text positions a lane of the DP warp holds: the least power of two k
+    with 32 k >= tx."""
+    k = 1
+    while 32 * k < tx:
+        k *= 2
+    return k
+
+
+def _smem_bytes(cells: int, frames: int, stages: int, ty: int) -> int:
+    """Shared memory of a plan (struct Plan in csrc/mas.cu): the ring of f32
+    scores (a stage holds a spare row for the DP's look-ahead), two mbarriers
+    a stage, Ty x cells decision words, a path index a frame."""
+    return stages * (frames + 1) * 32 * cells * 4 + 16 * stages + ty * cells * 4 + ty * 4
+
+
+def mas_plan(tx: int, ty: int) -> MasPlan:
+    """The plan of one launch on (B, tx, ty) inputs.
+
+    A chunk is at most 64 frames (fewer starve the DP warp at a chunk's
+    boundary, more delay its first chunk: tools/mas_phases.py) and at most a
+    32 KB stage (8 frames at tx > 512), so that a producer thread loads a
+    whole chunk in one batch; the ring takes 4 stages where they fit beside
+    the decisions, else 3 or 2, else fewer frames a chunk. The scores are stored in f32 whatever the
+    input dtypes, so the plan does not depend on them. Raises ValueError
+    when tx is past MAX_TEXT or no plan fits in shared memory.
+    """
+    if not 1 <= tx <= MAX_TEXT:
+        raise ValueError(f"MAS takes 1 to {MAX_TEXT} text positions, got {tx}")
+    if ty < 1:
+        raise ValueError(f"MAS takes at least one mel frame, got {ty}")
+    cells = mas_cells(tx)
+    frames = min(64, _STAGE_SCORES // (32 * cells))
+    while frames >= 4:
+        for stages in (4, 3, 2):
+            smem = _smem_bytes(cells, frames, stages, ty)
+            if smem <= SMEM_LIMIT:
+                return MasPlan(cells, frames, stages, smem)
+        frames //= 2
+    raise ValueError(f"MAS keeps {ty} x {cells} decision words in shared memory: "
+                     f"Tx={tx}, Ty={ty} does not fit in {SMEM_LIMIT} bytes")
+
+
 @functools.cache
 def _entries():
-    """The kernels' C entries, built and loaded on first use."""
+    """The kernel's C entries (the fused MAS and the chain probe), built and
+    loaded on first use."""
     lib = _build.library("mas")
-    fwd, bwd = lib.mas_forward, lib.mas_backtrack
-    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    path, probe = lib.mas_path, lib.mas_chain_probe
+    path.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    path.restype = probe.restype = ctypes.c_int
+    return path, probe
 
 
 def _check_lengths(t_x, t_y, b, dev):
@@ -100,70 +164,71 @@ def _check_lengths(t_x, t_y, b, dev):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def mas_forward(score: torch.Tensor, t_x: torch.Tensor, t_y: torch.Tensor):
-    """Launch K3a: score (B, Ty, Tx) f32 contiguous on a CUDA device, int32 lengths
-    -> (B, Ty, ceil(Tx/32)) int32 ballot words; bit x of word w is text position
-    32w + x. Frames at or past t_y are not written."""
-    if not score.is_cuda:
-        raise ValueError("mas_forward needs the scores on a CUDA device")
-    if score.dtype != torch.float32 or score.dim() != 3 or not score.is_contiguous():
-        raise ValueError(f"mas_forward takes contiguous (B, Ty, Tx) float32 scores, got "
-                         f"{tuple(score.shape)} {score.dtype}")
-    b, ty_max, tx_max = score.shape
-    if not 1 <= tx_max <= MAX_TEXT:
-        raise ValueError(f"mas_forward takes 1 to {MAX_TEXT} text positions, got {tx_max}")
-    _check_lengths(t_x, t_y, b, score.device)
-    words = torch.empty((b, ty_max, (tx_max + 31) // 32), device=score.device,
-                        dtype=torch.int32)
-    fwd, _ = _entries()
-    with torch.cuda.device(score.device):
-        stream = torch.cuda.current_stream(score.device).cuda_stream
-        rc = fwd(score.data_ptr(), t_x.data_ptr(), t_y.data_ptr(), words.data_ptr(),
-                 b, ty_max, tx_max, stream)
+def mas_cuda(value: torch.Tensor, mask: torch.Tensor, t_x: torch.Tensor, t_y: torch.Tensor,
+             with_bits: bool = False):
+    """Launch the fused kernel: value, mask (B, Tx, Ty) contiguous, each float32
+    or bfloat16, on a CUDA device; t_x, t_y (B,) int32 there -> the (B, Tx, Ty)
+    path in value's dtype (mask's value on the path, 0 elsewhere).
+
+    with_bits (the checks only) also returns the take-diagonal decisions as
+    (B, Ty, ceil(Tx/32)) int32 words, bit i of word w = text position 32w + i,
+    frames at or past t_y unwritten (`unpack_words` reads them)."""
+    if not (value.is_cuda and mask.is_cuda):
+        raise ValueError("mas_cuda needs value and mask on a CUDA device")
+    if value.dim() != 3 or mask.shape != value.shape or mask.device != value.device:
+        raise ValueError(f"mas_cuda takes value and mask of one (B, Tx, Ty) shape, got "
+                         f"{tuple(value.shape)} and {tuple(mask.shape)}")
+    if value.dtype not in _DTYPES or mask.dtype not in _DTYPES:
+        raise ValueError(f"mas_cuda takes float32 or bfloat16, got {value.dtype}, {mask.dtype}")
+    if not (value.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("mas_cuda takes contiguous value and mask")
+    b, tx_max, ty_max = value.shape
+    if b < 1:
+        raise ValueError("mas_cuda takes at least one utterance")
+    plan = mas_plan(tx_max, ty_max)
+    _check_lengths(t_x, t_y, b, value.device)
+    path = torch.empty_like(value)
+    bits = (torch.empty((b, ty_max, (tx_max + 31) // 32), device=value.device,
+                        dtype=torch.int32) if with_bits else None)
+    entry, _ = _entries()
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        rc = entry(value.data_ptr(), mask.data_ptr(), t_x.data_ptr(), t_y.data_ptr(),
+                   path.data_ptr(), None if bits is None else bits.data_ptr(), b, tx_max, ty_max,
+                   _DTYPES[value.dtype], _DTYPES[mask.dtype], plan.cells, plan.frames,
+                   plan.stages, stream)
     if rc != 0:
-        raise RuntimeError(f"mas_forward kernel launch failed: CUDA error {rc}")
-    mas_forward.launches += 1
-    return words
+        raise RuntimeError(f"MAS kernel launch failed: CUDA error {rc}")
+    mas_cuda.launches += 1
+    return (path, bits) if with_bits else path
 
 
-def mas_backtrack(words: torch.Tensor, t_x: torch.Tensor, t_y: torch.Tensor, tx_max: int):
-    """Launch K3b: K3a's words (B, Ty, ceil(Tx/32)) -> (B, Tx, Ty) 0/1 path, f32."""
-    if not words.is_cuda:
-        raise ValueError("mas_backtrack needs the words on a CUDA device")
-    b, ty_max, n_words = words.shape
-    if (words.dtype != torch.int32 or not words.is_contiguous()
-            or n_words != (tx_max + 31) // 32):
-        raise ValueError(f"mas_backtrack takes contiguous (B, Ty, {(tx_max + 31) // 32}) "
-                         f"int32 words, got {tuple(words.shape)} {words.dtype}")
-    if ty_max * n_words * 4 + ty_max * 4 > 227 * 1024:
-        raise ValueError(f"mas_backtrack stages Ty * ceil(Tx/32) words in shared memory: "
-                         f"{ty_max} x {n_words} does not fit")
-    _check_lengths(t_x, t_y, b, words.device)
-    path = torch.empty((b, tx_max, ty_max), device=words.device, dtype=torch.float32)
-    _, bwd = _entries()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = bwd(words.data_ptr(), t_x.data_ptr(), t_y.data_ptr(), path.data_ptr(),
-                 b, ty_max, tx_max, stream)
+mas_cuda.launches = 0
+
+
+def chain_probe(steps: int, device) -> torch.Tensor:
+    """Launch the chain probe of `csrc/mas.cu` on `device`: one warp, `steps`
+    dependent DP steps (a shuffle, a compare and select, an add). Its time
+    over steps is the chain's latency L of the kernel's bound. Counted toward
+    no path."""
+    out = torch.empty(32, device=device, dtype=torch.float32)
+    _, probe = _entries()
+    with torch.cuda.device(out.device):
+        rc = probe(out.data_ptr(), int(steps), torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"mas_backtrack kernel launch failed: CUDA error {rc}")
-    mas_backtrack.launches += 1
-    return path
-
-
-mas_forward.launches = 0
-mas_backtrack.launches = 0
+        raise RuntimeError(f"MAS chain probe launch failed: CUDA error {rc}")
+    return out
 
 
 def unpack_words(words: torch.Tensor, tx_max: int) -> torch.Tensor:
-    """K3a's ballot words (B, Ty, W) int32 -> bits (B, Ty, Tx) bool."""
+    """Decision words (B, Ty, W) int32, `mas_cuda(with_bits=True)`'s layout -> bits (B, Ty, Tx) bool."""
     shifts = torch.arange(32, device=words.device, dtype=torch.int64)
     bits = (words.to(torch.int64)[..., None] >> shifts) & 1
     return bits.flatten(2)[..., :tx_max].bool()
 
 
 def pack_words(bits: torch.Tensor) -> torch.Tensor:
-    """bits (B, Ty, Tx) bool -> (B, Ty, ceil(Tx/32)) int32 words, K3a's layout."""
+    """bits (B, Ty, Tx) bool -> (B, Ty, ceil(Tx/32)) int32 words, bit i of word w = position 32w + i."""
     b, ty, tx = bits.shape
     n = (tx + 31) // 32
     padded = torch.zeros((b, ty, n * 32), device=bits.device, dtype=torch.int64)
@@ -173,22 +238,22 @@ def pack_words(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
-def _scores(value, mask, t_x, t_y):
-    """(B, Ty, Tx) f32 masked scores and int32 lengths (from the mask when not given)."""
+def _lengths(value, mask, t_x, t_y):
+    """int32 lengths on value's device, from the mask when not given."""
     if t_x is None or t_y is None:
         dx, dy = lengths_from_mask(mask)
         t_x = dx if t_x is None else t_x
         t_y = dy if t_y is None else t_y
-    t_x = t_x.to(device=value.device, dtype=torch.int32)
-    t_y = t_y.to(device=value.device, dtype=torch.int32)
-    return (value * mask).float().transpose(1, 2).contiguous(), t_x, t_y
+    return (t_x.to(device=value.device, dtype=torch.int32),
+            t_y.to(device=value.device, dtype=torch.int32))
 
 
 @torch.no_grad()
 def maximum_path_plain(value: torch.Tensor, mask: torch.Tensor,
                        t_x: Optional[torch.Tensor] = None, t_y: Optional[torch.Tensor] = None):
     """The plain version of `maximum_path`, on any device."""
-    score, t_x, t_y = _scores(value, mask, t_x, t_y)
+    t_x, t_y = _lengths(value, mask, t_x, t_y)
+    score = (value * mask).float().transpose(1, 2).contiguous()
     path = mas_backtrack_plain(mas_forward_plain(score, t_x, t_y), t_x, t_y)
     return (path * mask).to(value.dtype)
 
@@ -197,12 +262,12 @@ def maximum_path_plain(value: torch.Tensor, mask: torch.Tensor,
 def maximum_path(value: torch.Tensor, mask: torch.Tensor,
                  t_x: Optional[torch.Tensor] = None, t_y: Optional[torch.Tensor] = None):
     """Batch MAS. value, mask (B, Tx, Ty); t_x, t_y (B,) lengths, derived from
-    the mask when not given. Returns the (B, Tx, Ty) 0/1 path in value's dtype.
+    the mask when not given. Returns the (B, Tx, Ty) path in value's dtype:
+    the mask's value on the path, 0 elsewhere. On a CUDA device with int32
+    lengths there, one kernel launch and nothing else.
 
     Precondition, as in the reference: t_y >= t_x per sample.
     """
     if value.device.type == "cpu":
         return maximum_path_plain(value, mask, t_x, t_y)
-    score, t_x, t_y = _scores(value, mask, t_x, t_y)
-    path = mas_backtrack(mas_forward(score, t_x, t_y), t_x, t_y, value.shape[1])
-    return (path * mask).to(value.dtype)
+    return mas_cuda(value, mask, *_lengths(value, mask, t_x, t_y))

@@ -2,9 +2,10 @@
 
 `maximum_path_plain`'s path must be bit-equal to `maximum_path_ref` (lax.scan),
 `maximum_path_pallas` (the TPU kernels in interpret mode) and the C++
-reference `maximum_path_cpp`, at the shapes of tests/test_mas.py. The CUDA
-kernels K3a and K3b are held bit-equal to the plain version on the card by
-chip_smoke.py.
+reference `maximum_path_cpp`, at the shapes of tests/test_mas.py, and follow
+PyTorch's promotion for bf16 inputs and masks with holes. The fused CUDA
+kernel (K3a and K3b in one launch) is held bit-equal to the plain version on
+the card by chip_smoke.py; its shared-memory plan `mas_plan` is checked here.
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from matcha_tpu.ops import maximum_path_pallas, maximum_path_ref
-from matcha_tpu.ops.mas_cpp import maximum_path_cpp
+from matcha_tpu.ops.mas_cpp import mas_batch_cpp, maximum_path_cpp
 from matcha_tpu_torch.ops import mas
 from tests.test_mas import _check_path_valid, _random_problem
 
@@ -101,7 +102,77 @@ def test_words_round_trip_and_plain_steps_compose():
 
 
 def test_cpu_path_counts_no_launch():
-    before = (mas.mas_forward.launches, mas.mas_backtrack.launches)
+    before = mas.mas_cuda.launches
     rng = np.random.default_rng(2)
     _port(*_random_problem(rng, 2, 5, 9)[:2])
-    assert (mas.mas_forward.launches, mas.mas_backtrack.launches) == before
+    assert mas.mas_cuda.launches == before
+
+
+def _holed_problem(seed, b=4, tx=23, ty=61, fraction=False):
+    """Scores, explicit lengths, and a mask that is not an outer product of
+    them: random holes inside the lengths (and, with `fraction`, some cells
+    at 0.3, so that a bf16 product rounds)."""
+    rng = np.random.default_rng(seed)
+    value, mask, t_x, t_y = _random_problem(rng, b, tx, ty)
+    value = (-400.0 + 60.0 * value).astype(np.float32)
+    mask = mask * (rng.random(mask.shape) > 0.15)
+    if fraction:
+        mask = np.where(rng.random(mask.shape) < 0.2, 0.3 * mask, mask)
+    return value, mask.astype(np.float32), t_x.astype(np.int32), t_y.astype(np.int32)
+
+
+def test_mask_with_holes_and_explicit_lengths():
+    """The lengths come from the caller, not the mask; the result is the
+    path times the mask, as the C++ reference gives it on the same product."""
+    value, mask, t_x, t_y = _holed_problem(11)
+    got = _port(value, mask, t_x, t_y)
+    path = mas_batch_cpp(value * mask, t_x, t_y).astype(np.float32)
+    np.testing.assert_array_equal(got, path * mask)
+    assert (got != 0).sum() < (path != 0).sum()  # holes on the path are zero
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16])
+def test_bf16_value_follows_pytorch_promotion(mask_dtype):
+    """bf16 value with an f32 mask scores in f32, with a bf16 mask rounds the
+    product to bf16 first; either way the output is bf16, the mask's value
+    (rounded to bf16) on the path."""
+    value, mask, t_x, t_y = _holed_problem(13, fraction=True)
+    v = torch.from_numpy(value).bfloat16()
+    m = torch.from_numpy(mask).to(mask_dtype)
+    got = mas.maximum_path(v, m, torch.from_numpy(t_x), torch.from_numpy(t_y))
+    assert got.dtype == torch.bfloat16
+    if mask_dtype == torch.bfloat16:
+        score = (v.float() * m.float()).bfloat16().float().numpy()
+    else:
+        score = v.float().numpy() * mask
+    assert not np.array_equal(score, v.float().numpy() * m.float().numpy()) \
+        or mask_dtype == torch.float32  # the bf16 product does round here
+    path = mas_batch_cpp(score, t_x, t_y).astype(np.float32)
+    want = torch.from_numpy(path) * m.float()
+    assert torch.equal(got, want.bfloat16())
+
+
+@pytest.mark.parametrize("tx", [1, 45, 64, 256, 1024])
+@pytest.mark.parametrize("ty", [1, 45, 448, 1024])
+def test_mas_plan_covers_and_fits(tx, ty):
+    plan = mas.mas_plan(tx, ty)
+    assert plan.cells == mas.mas_cells(tx) and 32 * plan.cells >= tx
+    assert plan.cells == 1 or 16 * plan.cells < tx  # the least power of two
+    assert plan.frames % 4 == 0 and plan.frames >= 4 and 2 <= plan.stages <= 4
+    assert -(-ty // plan.frames) * plan.frames >= ty  # the chunks cover every frame
+    # ring (a spare row a stage), two mbarriers a stage, the decisions, the path index
+    ring = plan.stages * (plan.frames + 1) * 32 * plan.cells * 4
+    assert plan.smem == ring + 16 * plan.stages + ty * plan.cells * 4 + ty * 4
+    assert plan.smem <= mas.SMEM_LIMIT
+    # a producer thread loads a chunk's (row, 4 frames) items in one batch
+    assert 32 * plan.cells * plan.frames // 4 <= 10 * 224
+
+
+def test_mas_plan_raises_past_shared_memory_and_text_cap():
+    assert mas.mas_plan(1024, 1400).frames == 4  # fewer frames a chunk before it gives up
+    with pytest.raises(ValueError, match="shared memory"):
+        mas.mas_plan(1024, 1500)
+    with pytest.raises(ValueError, match="shared memory"):
+        mas.mas_plan(64, 30000)
+    with pytest.raises(ValueError, match="text positions"):
+        mas.mas_plan(1025, 64)
