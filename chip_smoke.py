@@ -16,8 +16,10 @@ PyTorch built for CUDA. In order:
    the fused MAS kernel (K3a and K3b in one launch) bit-equal to the plain
    version, its path and its decisions, at B=16, Tx in {1, 45, 64, 256}, Ty
    in {45, 448, 1024}, at Tx = Ty = 1024, with a bf16 value (f32 and bf16
-   masks) and with a mask with holes; one `maximum_path` call profiled (one
-   CUDA kernel); the DP chain's step latency L measured by a probe; K4
+   masks), with a mask with holes and with lengths and widths at their
+   edges (0, past Tx and Ty, t_y < t_x, Tx 32, 33, 129, 513, Ty 1, 2, 65);
+   one `maximum_path` call profiled (one CUDA kernel); the DP chain's step
+   latency L measured by a probe; K4
    (attention backward, dbias included) in float32 and bf16 at the shapes of
    K1, fed the plain forward's (o, lse) and once K1's own;
 3. the serving path: `TTSEngine` at full width (MatchaConfig() and HiFi-GAN
@@ -322,8 +324,9 @@ def mas_checks(dev, gen):
     """(what, (value, mask, t_x, t_y)) of the fused MAS kernel's checks besides
     the 12 training shapes: Tx = Ty = 1024 (32 cells a lane, 2 stages), bf16
     values with f32 and bf16 masks (some mask cells at 0.3, so that a bf16
-    product rounds), and masks with holes (not an outer product of the
-    lengths), at a vector-load shape and at an odd Ty (element loads)."""
+    product rounds), masks with holes (not an outer product of the lengths)
+    at a vector-load shape and at an odd Ty (element loads), and lengths and
+    widths at their edges."""
     out = [("B=16 Tx=1024 Ty=1024", mas_inputs(16, 1024, 1024, dev, gen))]
     value, mask, t_x, t_y = mas_inputs(16, 64, 448, dev, gen)
     frac = torch.where(torch.rand(mask.shape, generator=gen, device=dev) < 0.2, 0.3, 1.0) * mask
@@ -333,6 +336,24 @@ def mas_checks(dev, gen):
         value, mask, t_x, t_y = mas_inputs(b, tx, ty, dev, gen)
         holes = mask * (torch.rand(mask.shape, generator=gen, device=dev) > 0.15)
         out.append((f"mask with holes B={b} Tx={tx} Ty={ty}", (value, holes, t_x, t_y)))
+    # lengths at and past the edges, and Tx, Ty around the kernel's cell and
+    # chunk sizes
+    for what, tx, ty, t_x, t_y in (
+            ("t_x or t_y 0", 10, 30, [10, 0, 5], [30, 20, 0]),
+            ("lengths past Tx, Ty", 10, 30, [12, 10, 10], [30, 40, 35]),
+            ("t_y < t_x", 20, 30, [20, 15, 20], [10, 12, 20]),
+            ("Tx 32", 32, 97, [32, 16, 1], [97, 90, 32]),
+            ("Tx 33", 33, 97, [33, 16, 1], [97, 90, 33]),
+            ("Tx 129", 129, 97, [129, 64, 1], [97, 90, 50]),
+            ("Tx 513", 513, 97, [513, 256, 1], [97, 90, 50]),
+            ("Ty 1", 40, 1, [1, 1], [1, 1]),
+            ("Ty 2", 40, 2, [2, 1], [2, 1]),
+            ("Ty 65", 40, 65, [40, 7], [65, 64])):
+        t_x = torch.tensor(t_x, device=dev, dtype=torch.int32)
+        t_y = torch.tensor(t_y, device=dev, dtype=torch.int32)
+        mask = ((torch.arange(tx, device=dev)[None, :, None] < t_x[:, None, None])
+                & (torch.arange(ty, device=dev)[None, None, :] < t_y[:, None, None])).float()
+        out.append((what, (torch.randn(mask.shape, generator=gen, device=dev), mask, t_x, t_y)))
     return out
 
 

@@ -63,9 +63,8 @@
 // cp.async or bulk copies. The stage layout is a transpose of the global one
 // (text positions interleaved across lanes, frames as rows), which a copy
 // engine cannot write, and forming the product in the producer leaves the
-// DP warp's issue slots to the chain. Its cost: a load instruction of 32
-// lanes touches 32 rows, so the first chunk takes the producers several
-// thousand cycles of L1 requests (tools/mas_phases.py).
+// DP warp's issue slots to the chain. The price: a load instruction of 32
+// lanes touches 32 rows (tools/mas_phases.py times the first chunk).
 //
 // Optional bits_out (the checks only): the take-diagonal decisions in K3a's
 // former layout, (B, Ty, ceil(Tx/32)) int32, bit i of word w = text position
