@@ -379,10 +379,11 @@ def profile_mas_call(dev, seed):
     return {"cuda_kernels": names}
 
 
-def chain_step_ns(dev, steps=(20_000, 40_000), reps=5):
-    """L, the latency of one dependent DP step on one warp (a shuffle, a
-    compare and select, an add), from `mas.chain_probe` at two step counts
-    (CUDA events, the fastest of `reps` each): the slope, in ns."""
+def chain_step_ns(dev, steps=(50_000, 100_000), reps=5):
+    """L, the latency of one dependent step of the MAS recursion (a max and an
+    add, on one thread: what a frame needs whatever the design), from
+    `mas.chain_probe` at two step counts (CUDA events, the fastest of `reps`
+    each): the slope, in ns."""
     from matcha_tpu_torch.ops.mas import chain_probe
 
     def best_ms(n):
@@ -1310,8 +1311,8 @@ def main(argv=None) -> int:
     errs.update(check_training_kernels(dev, args.seed))
     mas_profile = profile_mas_call(dev, args.seed)
     step_ns = chain_step_ns(dev)
-    log(f"MAS chain step L = {step_ns:.3f} ns (one warp: shuffle, compare and select, add; "
-        f"slope of the probe at 20,000 and 40,000 steps) on {smi}")
+    log(f"MAS chain step L = {step_ns:.3f} ns (one thread: max, add; "
+        f"slope of the probe at 50,000 and 100,000 steps) on {smi}")
     engine = serve_main_path(dev, mcfg, hcfg, args.seed)
     log({"engine": engine})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

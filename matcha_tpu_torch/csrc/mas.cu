@@ -18,8 +18,9 @@
 //
 // What bounds it. Neither bytes nor operations: every frame of an utterance
 // depends on the one before, so a call takes at least max_b(t_y) dependent
-// steps of one warp (a shuffle, a compare and select, an add: the latency L
-// that mas_chain_probe measures). The TPU kernels run that chain over (B, Tx)
+// steps of the recursion, a max and an add each (the latency L that
+// mas_chain_probe measures on one thread). This design's step also carries a
+// shuffle, so it is slower than L. The TPU kernels run that chain over (B, Tx)
 // vector rows, all utterances in lock step, with a second grid for the walk
 // back. Here one block takes one utterance, and the design keeps everything
 // but the chain off the chain:
@@ -32,8 +33,7 @@
 //   shuffle and ballot, their cells NEG and out of band. The shuffle of the
 //   last cell is issued as soon as that cell is updated and the next frame's
 //   scores are loaded a frame ahead, so neither waits on the chain; the
-//   frame loop is unrolled by MAS_UNROLL (8, faster than 4, 2 or 1 on the
-//   card: `tools/mas_phases.py --define MAS_UNROLL=n` times each; PERF.md).
+//   frame loop is unrolled by 8 (faster than 4, 2 or 1 on the card; PERF.md).
 // - The scores are in shared memory ahead of the chain. The other 7 warps are
 //   producers: they read `value` and `mask` in their own (B, Tx, Ty) layout,
 //   4 frames of a text row at a time (16 or 8 bytes) where Ty and the
@@ -64,7 +64,7 @@
 // (text positions interleaved across lanes, frames as rows), which a copy
 // engine cannot write, and forming the product in the producer leaves the
 // DP warp's issue slots to the chain. The price: a load instruction of 32
-// lanes touches 32 rows (tools/mas_phases.py times the first chunk).
+// lanes touches 32 rows.
 //
 // Optional bits_out (the checks only): the take-diagonal decisions in K3a's
 // former layout, (B, Ty, ceil(Tx/32)) int32, bit i of word w = text position
@@ -160,28 +160,6 @@ __device__ __forceinline__ float score(float v, float m) {
     return p;
 }
 
-// -DMAS_CLOCKS (tuning builds only): thread 0 of each of the first 64 blocks
-// stamps the SM clock at the kernel's start (0), the DP's end (1, warp 0), the
-// first block barrier (2), the walk's end (3), the kernel's end (4), the
-// DP's first chunk in hand (5) and the first producer thread's first chunk
-// stored (6); tools/mas_phases.py reads them;
-// mas_clock_stamps copies them out.
-#ifdef MAS_CLOCKS
-__device__ long long stamps[64][7];
-#define MAS_STAMP(i)                                                                 \
-  if (blockIdx.x < 64 && threadIdx.x == ((i) == 6 ? 32 : 0)) stamps[blockIdx.x][i] = clock64()
-#else
-#define MAS_STAMP(i)
-#endif
-
-// frames of the DP loop unrolled (-DMAS_UNROLL=n to tune)
-#ifndef MAS_UNROLL
-#define MAS_UNROLL 8
-#endif
-#define MAS_PRAGMA(x) _Pragma(#x)
-#define MAS_UNROLL_BY(n) MAS_PRAGMA(unroll n)
-#define MAS_UNROLL_FRAMES MAS_UNROLL_BY(MAS_UNROLL)
-
 struct Args {
   const void* value;
   const void* mask;
@@ -258,7 +236,6 @@ __device__ void produce(const Args& a, const Plan& p, float* ring, uint32_t full
         }
       }
     }
-    if (c == 0) MAS_STAMP(6);
     mbar_arrive(full + 8 * s);
     zero_slice(a, b, c, nchunks, t);  // off the DP's way: after the chunk is handed over
   }
@@ -282,91 +259,63 @@ __device__ __forceinline__ void load_scores(float (&sc)[K], const float* r, int 
   }
 }
 
-// The DP's state in one lane: its K cells, the next frame's scores, the
-// from_prev of its first cell, where the next frame's scores and words are,
-// and the band [lo, hi) and diagonal d of the next frame, relative to x0.
-template <int K>
-struct Chain {
-  float dp[K], sc[K], left;
-  const float* r;
-  uint32_t* o;
-  int lo, hi, d;
-};
-
-// n frames of the DP. BAND: frames where the band is [0, txr) and no cell is
-// on the diagonal (32 K <= y, txr - 1 <= y <= ty - tx), most frames of a
-// training alignment: a cell is then a compare, a select and an add, and its
-// band test is the lane's own. Off the chain either way: the next frame's
-// scores are loaded a frame ahead (a stage has one spare row, so the last
-// frame's look-ahead reads nothing that matters), the shuffle of the last
-// cell is issued as soon as that cell is updated, so its latency overlaps
-// the lane's other cells, and every lane stores the frame's words (the same
-// words to the same addresses: no branch).
-template <int K, bool BAND>
-__device__ __forceinline__ void frames(Chain<K>& c, int n, int lane, int lmin, int hmax) {
-  constexpr int row = 32 * K;
-  MAS_UNROLL_FRAMES
-  for (int f = 0; f < n; ++f) {
-    c.r += row;
-    float nx[K];
-    load_scores<K>(nx, c.r, lane);
-    const int l = max(c.lo, lmin), h = min(c.hi, hmax);
-    uint32_t w[K];
-    float left_next;
-#pragma unroll
-    for (int j = K - 1; j >= 0; --j) {  // descending: dp[j - 1] is still the last frame's
-      const float fp = j == 0 ? c.left : c.dp[j - 1];
-      const bool diag = !BAND && j == c.d;
-      const float fs = diag ? NEG : c.dp[j];
-      const bool take = fp >= fs || diag;
-      const bool in_band = BAND ? j < hmax : j >= l && j < h;
-      c.dp[j] = in_band ? __fadd_rn(take ? fp : fs, c.sc[j]) : NEG;
-      if (j == K - 1) left_next = __shfl_up_sync(FULL, c.dp[K - 1], 1);  // position x0 - 1
-      w[j] = __ballot_sync(FULL, take);
-    }
-    c.left = lane == 0 ? NEG : left_next;
-    if constexpr (K >= 4) {
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q)
-        reinterpret_cast<uint4*>(c.o)[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-    } else if constexpr (K == 2) {
-      *reinterpret_cast<uint2*>(c.o) = make_uint2(w[0], w[1]);
-    } else {
-      c.o[0] = w[0];
-    }
-    c.o += K;
-    ++c.lo, ++c.hi, ++c.d;
-#pragma unroll
-    for (int j = 0; j < K; ++j) c.sc[j] = nx[j];
-  }
-}
-
 // The DP warp: frames [0, ny) in order, K cells a lane, decisions to `dec`.
+// Off the chain: the next frame's scores are loaded a frame ahead (a stage
+// has one spare row, so a chunk's last look-ahead reads nothing that
+// matters), the shuffle of the last cell is issued as soon as that cell is
+// updated, so its latency overlaps the lane's other cells, and every lane
+// stores the frame's words (the same words to the same addresses: no branch).
 template <int K>
 __device__ void dp_chain(const Plan& p, const float* ring, uint32_t full, uint32_t empty,
                          uint32_t* dec, int tx, int ty, int txr, int ny) {
+  constexpr int row = 32 * K;
   const int lane = threadIdx.x, x0 = lane * K;
-  const int F = p.frames;
   const int hmax = txr - x0, lmin = -x0;
-  // frames of the plain band: [band0, band1)
-  const int band0 = max(32 * K, txr - 1), band1 = ty - tx + 1;
-  Chain<K> c;
+  float dp[K], sc[K];
 #pragma unroll
-  for (int j = 0; j < K; ++j) c.dp[j] = NEG;
-  c.left = lane == 0 ? 0.f : NEG;  // from_prev of the lane's first cell, frame 0
-  c.o = dec;
+  for (int j = 0; j < K; ++j) dp[j] = NEG;
+  float left = lane == 0 ? 0.f : NEG;  // from_prev of the lane's first cell, frame 0
+  uint32_t* o = dec;
   // band [max(0, tx + y - ty), min(txr, y + 1)) and diagonal y, relative to x0
-  c.lo = tx - ty - x0, c.hi = 1 - x0, c.d = -x0;
-  for (int k = 0, y0 = 0; y0 < ny; ++k, y0 += F) {
-    const int s = k % p.stages, nf = min(F, ny - y0);
+  int lo = tx - ty - x0, hi = 1 - x0, d = -x0;
+  for (int k = 0, y0 = 0; y0 < ny; ++k, y0 += p.frames) {
+    const int s = k % p.stages, nf = min(p.frames, ny - y0);
     mbar_wait(full + 8 * s, (k / p.stages) & 1);
-    if (k == 0) MAS_STAMP(5);
-    c.r = ring + (size_t)s * p.stage_floats + x0;
-    load_scores<K>(c.sc, c.r, lane);
-    const int f1 = min(max(band0 - y0, 0), nf), f2 = max(min(band1 - y0, nf), f1);
-    frames<K, false>(c, f1, lane, lmin, hmax);
-    frames<K, true>(c, f2 - f1, lane, lmin, hmax);
-    frames<K, false>(c, nf - f2, lane, lmin, hmax);
+    const float* r = ring + (size_t)s * p.stage_floats + x0;
+    load_scores<K>(sc, r, lane);
+#pragma unroll 8
+    for (int f = 0; f < nf; ++f) {
+      r += row;
+      float nx[K];
+      load_scores<K>(nx, r, lane);
+      const int l = max(lo, lmin), h = min(hi, hmax);
+      uint32_t w[K];
+      float left_next;
+#pragma unroll
+      for (int j = K - 1; j >= 0; --j) {  // descending: dp[j - 1] is still the last frame's
+        const float fp = j == 0 ? left : dp[j - 1];
+        const bool diag = j == d;
+        const float fs = diag ? NEG : dp[j];
+        const bool take = fp >= fs || diag;
+        dp[j] = j >= l && j < h ? __fadd_rn(take ? fp : fs, sc[j]) : NEG;
+        if (j == K - 1) left_next = __shfl_up_sync(FULL, dp[K - 1], 1);  // position x0 - 1
+        w[j] = __ballot_sync(FULL, take);
+      }
+      left = lane == 0 ? NEG : left_next;
+      if constexpr (K >= 4) {
+#pragma unroll
+        for (int q = 0; q < K / 4; ++q)
+          reinterpret_cast<uint4*>(o)[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+      } else if constexpr (K == 2) {
+        *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+      } else {
+        o[0] = w[0];
+      }
+      o += K;
+      ++lo, ++hi, ++d;
+#pragma unroll
+      for (int j = 0; j < K; ++j) sc[j] = nx[j];
+    }
     mbar_arrive(empty + 8 * s);
   }
 }
@@ -464,7 +413,6 @@ __global__ void __launch_bounds__(THREADS, 1) mas_path_kernel(Args a, int frames
   const int ny = max(0, min(ty, a.Ty));     // frames visited
   const int txr = max(0, min(tx, a.Tx));    // text rows that can be in band
   const int nchunks = (ny + p.frames - 1) / p.frames;
-  MAS_STAMP(0);
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.stages; ++i) {
       mbar_init(full + 8 * i, PTHREADS);
@@ -476,7 +424,6 @@ __global__ void __launch_bounds__(THREADS, 1) mas_path_kernel(Args a, int frames
 
   if (threadIdx.x < 32) {
     dp_chain<K>(p, ring, full, empty, dec, tx, ty, txr, ny);
-    MAS_STAMP(1);
   } else {
     switch (a.vdt * 2 + a.mdt) {
       case 0: produce<K, float, float>(a, p, ring, full, empty, b, txr, ny, nchunks); break;
@@ -487,10 +434,8 @@ __global__ void __launch_bounds__(THREADS, 1) mas_path_kernel(Args a, int frames
   }
   __syncthreads();  // decisions complete, zeros written
 
-  MAS_STAMP(2);
   if (threadIdx.x < 32) {
     walk_back<K>(dec, sidx, reinterpret_cast<uint32_t*>(smem), tx, ny, a.Tx);
-    MAS_STAMP(3);
   }
   if (a.bits) {  // the decisions in K3a's former layout, for the checks
     const int W = (a.Tx + 31) / 32;
@@ -519,20 +464,19 @@ __global__ void __launch_bounds__(THREADS, 1) mas_path_kernel(Args a, int frames
     else
       static_cast<float*>(a.out)[i] = m;
   }
-  MAS_STAMP(4);
 }
 
-// One warp, `steps` dependent DP steps of one cell a lane: a shuffle, a
-// compare and select, an add. Its time over steps is L, the chain's latency.
+// One thread, `steps` dependent steps of the recursion on a cell and its left
+// neighbour: dp[x] = max(dp[x - 1], dp[x]) + score, the least a frame needs
+// whatever the design. Its time over steps is L, the chain's latency.
 __global__ void mas_chain_probe_kernel(float* out, float sc, int steps) {
-  const int lane = threadIdx.x;
-  float dp = sc * lane;
+  float left = sc, dp = 2.f * sc;
+#pragma unroll 8
   for (int i = 0; i < steps; ++i) {
-    const float left = __shfl_up_sync(FULL, dp, 1);
-    const float fp = lane == 0 ? NEG : left;
-    dp = __fadd_rn(fp >= dp ? fp : dp, sc);
+    dp = __fadd_rn(fmaxf(left, dp), sc);
+    left = __fadd_rn(left, sc);
   }
-  out[lane] = dp;
+  out[0] = dp;
 }
 
 template <int K>
@@ -582,16 +526,10 @@ extern "C" int mas_path(const void* value, const void* mask, const void* t_x, co
   }
 }
 
-#ifdef MAS_CLOCKS
-extern "C" int mas_clock_stamps(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, stamps, sizeof(stamps));
-}
-#endif
-
-// out: 32 floats. Launches the chain probe (one warp, `steps` steps) on `stream`.
+// out: 1 float. Launches the chain probe (one thread, `steps` steps) on `stream`.
 extern "C" int mas_chain_probe(void* out, int steps, void* stream) {
   if (steps < 0) return (int)cudaErrorInvalidValue;
-  mas_chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  mas_chain_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), 0.5f, steps);
   return (int)cudaGetLastError();
 }

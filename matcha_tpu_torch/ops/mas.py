@@ -14,7 +14,7 @@ registers, a shuffle a frame) while the other warps stream the scores into
 shared memory and write the output's zeros, keeps the decisions in shared
 memory, walks the path back and writes the path cells. It is bound by a
 chain of t_y dependent steps, not by bytes or operations. `mas_plan` sizes
-its shared memory; `chain_probe` measures one step of the chain.
+its shared memory; `chain_probe` measures one step of the recursion.
 
 `maximum_path` takes its path from the tensors: the plain version
 (`maximum_path_plain`) for CPU tensors, the kernel for CUDA tensors (or an
@@ -122,11 +122,11 @@ def mas_plan(tx: int, ty: int) -> MasPlan:
     """The plan of one launch on (B, tx, ty) inputs.
 
     A chunk is at most 64 frames (fewer starve the DP warp at a chunk's
-    boundary, more delay its first chunk: tools/mas_phases.py) and at most a
-    32 KB stage (8 frames at tx > 512), so that a producer thread loads a
-    whole chunk in one batch; the ring takes 4 stages where they fit beside
-    the decisions, else 3 or 2, else fewer frames a chunk. The scores are stored in f32 whatever the
-    input dtypes, so the plan does not depend on them. Raises ValueError
+    boundary, more delay its first chunk) and at most a 32 KB stage (8
+    frames at tx > 512), so that a producer thread loads a whole chunk in one
+    batch; the ring takes 4 stages where they fit beside the decisions, else
+    3 or 2, else fewer frames a chunk. The scores are stored in f32 whatever
+    the input dtypes, so the plan does not depend on them. Raises ValueError
     when tx is past MAX_TEXT or no plan fits in shared memory.
     """
     if not 1 <= tx <= MAX_TEXT:
@@ -207,11 +207,10 @@ mas_cuda.launches = 0
 
 
 def chain_probe(steps: int, device) -> torch.Tensor:
-    """Launch the chain probe of `csrc/mas.cu` on `device`: one warp, `steps`
-    dependent DP steps (a shuffle, a compare and select, an add). Its time
-    over steps is the chain's latency L of the kernel's bound. Counted toward
-    no path."""
-    out = torch.empty(32, device=device, dtype=torch.float32)
+    """Launch the chain probe of `csrc/mas.cu` on `device`: one thread, `steps`
+    dependent steps of the recursion (a max and an add). Its time over steps
+    is the chain's latency L of the kernel's bound. Counted toward no path."""
+    out = torch.empty(1, device=device, dtype=torch.float32)
     _, probe = _entries()
     with torch.cuda.device(out.device):
         rc = probe(out.data_ptr(), int(steps), torch.cuda.current_stream(out.device).cuda_stream)

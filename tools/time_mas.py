@@ -14,7 +14,10 @@ validation batch, B = 16), it holds `maximum_path` on the card bit-equal to
   a caller waits;
 - `kernels_us`: one call under torch.profiler, device time by kernel name
   (for a tree whose MAS is several kernels, each of them).
-Sums over the path weigh each shape by its calls. `--tree` takes
+Sums over the path weigh each shape by its calls. One more row, outside the
+sums, is a batch at `DataConfig`'s caps (B = 16, Tx = 256, Ty = 1024, random
+lengths, the first utterance at the caps), the widest a real dataset gives
+(8 text positions a DP lane of `csrc/mas.cu`). `--tree` takes
 `matcha_tpu_torch` from another checkout (for example an unpacked parent
 commit) while the timing code stays this checkout's: two trees timed in one
 call, in turns, compare alignment against alignment on one card.
@@ -69,6 +72,7 @@ def main(argv=None) -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import matcha_tpu_torch
+    from matcha_tpu_torch.data.dataset import DataConfig
     from matcha_tpu_torch.models.matcha import MatchaConfig
     from matcha_tpu_torch.ops.mas import maximum_path, maximum_path_plain
 
@@ -80,15 +84,21 @@ def main(argv=None) -> int:
     cs.log(f"{card}; maximum_path from {tree}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    batches = [(cs.mas_batch_inputs(key, dev, gen), count)
+               for key, count in cs.mas_keys(cs.training_batches(MatchaConfig())).items()]
+    dcfg = DataConfig()
+    value, mask, t_x, t_y = cs.mas_inputs(dcfg.batch_size, dcfg.max_text_len, dcfg.max_mel_len,
+                                          dev, gen)
+    batches.append(((-1000.0 + 30.0 * value, mask, t_x, t_y), 0))  # log-prior sized scores
     rows = []
-    for key, count in cs.mas_keys(cs.training_batches(MatchaConfig())).items():
-        value, mask, t_x, t_y = cs.mas_batch_inputs(key, dev, gen)
+    for (value, mask, t_x, t_y), count in batches:
 
         def call():
             return maximum_path(value, mask, t_x, t_y)
 
         if not torch.equal(call(), maximum_path_plain(value, mask, t_x, t_y)):
-            raise AssertionError(f"maximum_path at {key[:2]} differs from the plain version")
+            raise AssertionError(f"maximum_path at {list(value.shape)} differs from the plain "
+                                 f"version")
         device_ms = cs.cuda_ms(call, args.reps)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -97,9 +107,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.reps
         kernels = profile_call(call)
-        rows.append({"shape": list(value.shape), "max_t_y": max(key[3]), "count": count,
+        max_t_y = int(t_y.max())
+        rows.append({"shape": list(value.shape), "max_t_y": max_t_y, "count": count,
                      "device_ms": device_ms, "wall_ms": wall_ms, "kernels_us": kernels})
-        cs.log(f"maximum_path {list(value.shape)} max t_y {max(key[3])} x{count}: device "
+        cs.log(f"maximum_path {list(value.shape)} max t_y {max_t_y} x{count}: device "
                f"{device_ms:.4f} ms, wall {wall_ms:.4f} ms, {len(kernels)} kernels "
                f"{ {k[:40]: round(v, 2) for k, v in kernels.items()} }")
     total = {k: sum(r["count"] * r[k] for r in rows) for k in ("device_ms", "wall_ms")}
