@@ -22,10 +22,19 @@ PyTorch built for CUDA. In order:
    latency L measured by a probe; K4
    (attention backward, dbias included) in float32 and bf16 at the shapes of
    K1, fed the plain forward's (o, lse) and once K1's own;
-3. the serving path: `TTSEngine` at full width (MatchaConfig() and HiFi-GAN
-   v1, random weights from `--seed`, bf16, int16 output), 4 texts with
-   per-request seeds, then one `synthesise_lowlatency` at the 1024-frame
-   budget, with the launch counts set to 0 just before and read just after;
+3. the serving paths, through the engine's CUDA graphs (captured by
+   `warmup`, whose seconds and graph-pool bytes are recorded): `TTSEngine` at
+   full width (MatchaConfig() and HiFi-GAN v1, random weights from `--seed`,
+   bf16, int16 output), 4 texts with per-request seeds, then one
+   `synthesise_lowlatency` at the 1024-frame budget, with the counts set to 0
+   just before and read just after (the graph replays' K1 and K2 launches as
+   derived, no eager launch); both requests against the same calls made
+   eagerly on the card with the same noise (bit-equal expected); each request
+   replayed under the profiler (wall, busy, idle, kernels; the profiler's K1
+   and K2 counts equal the graph accounting); 20 low-latency walls. Then the
+   same for a full-width Griffin-Lim engine in f32 at `MelConfig()`, with
+   Griffin-Lim card vs CPU, and 8 threads through `serve()` across two
+   budgets, each equal to its solo synthesis;
 4. the training path: `Trainer.fit` at full width on 64 synthetic items
    (batch 16: 4 micro-steps, 2 updates and a validation batch an epoch), one
    epoch in fp32, one in bf16, then the bf16 run resumed for a second, with
@@ -34,8 +43,9 @@ PyTorch built for CUDA. In order:
    off (one served text; one training forward and backward, losses and
    gradients) and against the frozen reference outputs of
    `tests/fixtures/golden_e2e*.npz`;
-6. at every shape each path gave each kernel, holds the kernel against its
-   plain version and times the kernel, its plain version and the matching
+6. at every shape each path gave each kernel (the Griffin-Lim engine's K1 in
+   f32 included), holds the kernel against its plain version and times the
+   kernel, its plain version and the matching
    PyTorch call, beside the least time the card could take; times K1 and K4
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
    T=448 in both dtypes; times K2 at every (C, T, k, d) of a 1024-frame
@@ -495,62 +505,269 @@ def mrf_shapes(hcfg, mel_frames):
     return shapes
 
 
+def reset_serving_counts(engine):
+    """Every serving count to 0: the engine's graph accounting and the wrappers'."""
+    from matcha_tpu_torch.serve import COUNTED
+
+    for w in COUNTED.values():
+        w.launches = 0
+    engine.launches = {name: 0 for name in COUNTED}
+
+
+def wrapper_counts():
+    from matcha_tpu_torch.serve import COUNTED
+
+    return {name: w.launches for name, w in COUNTED.items()}
+
+
+def graph_pool_bytes(engine):
+    """Bytes the allocator holds in the engine's shared graph pool, from its
+    memory snapshot, or "not measured" where the snapshot names no pools."""
+    segments = torch.cuda.memory._snapshot()["segments"]
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured (the memory snapshot names no pools)"
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(engine._pool))
+
+
+def warm_engine(engine, warm):
+    """Capture the graphs of `warm` [(batch sizes, text)]: seconds, graphs
+    captured and the memory they hold."""
+    n = len(engine._stages)
+    t0 = time.perf_counter()
+    for sizes, text in warm:
+        engine.warmup(sizes, text)
+    torch.cuda.synchronize()
+    return {"capture_s": time.perf_counter() - t0, "graphs": len(engine._stages) - n,
+            "pool_bytes": graph_pool_bytes(engine)}
+
+
+def serve_requests(engine, seeds):
+    """The main path's two requests: 4 texts with per-request seeds, then one
+    `synthesise_lowlatency` at the 1024-frame budget."""
+    wavs, info = engine.synthesise(TEXTS, seeds=seeds)
+    wav_ll, info_ll = engine.synthesise_lowlatency(LONG_TEXT, seed=7, budget=1024)
+    return wavs, info, wav_ll, info_ll
+
+
+def check_waveforms(wavs, info, wav_ll, info_ll, dtype, hop=256):
+    for wav, ml in list(zip(wavs, info["mel_lengths"])) + [(wav_ll, info_ll["mel_lengths"][0])]:
+        if wav.dtype != dtype or wav.shape != (ml * hop,) or ml < 8:
+            raise AssertionError(f"waveform {wav.dtype} {wav.shape} for {ml} mel frames")
+        if not np.isfinite(wav.astype(np.float32)).all() or np.abs(wav).max() == 0:
+            raise AssertionError("silent or non-finite waveform")
+    if info_ll["budget"] != 1024 or any(info["truncated"]) or info_ll["truncated"]:
+        raise AssertionError(f"budgets {info['budget']}/{info_ll['budget']}, truncation "
+                             f"{info['truncated']}/{info_ll['truncated']}")
+
+
+def eager_vs_graphs(engine, seeds, wavs, info, wav_ll, info_ll, tol):
+    """The same model calls made eagerly on the card (the engine's stage
+    functions, no graph) with the same noise and phase, against what the
+    graphs served: bit-equal is expected; a gap must stay within `tol`
+    (waveform units). Returns the gaps."""
+    dev = engine.device
+    out = {}
+    for name, served, run in (
+            ("synthesise", wavs, lambda x, xl: engine._decode(
+                info["budget"], *engine._encode(x, xl),
+                *engine._draws(len(TEXTS), info["budget"], None, seeds))),
+            ("lowlatency", [wav_ll], lambda x, xl: engine._synth(
+                1024, x, xl, *engine._draws(1, 1024, None, [7])))):
+        texts = TEXTS if name == "synthesise" else [LONG_TEXT]
+        x, xl = (a.to(dev) for a in engine._tokenize(texts))
+        want, _, _ = engine._finish(run(x, xl).cpu().numpy(), len(texts))
+        gap = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+                  for a, b in zip(served, want))
+        equal = all(np.array_equal(a, b) for a, b in zip(served, want))
+        if not equal and gap > tol:
+            raise AssertionError(f"{name}: graphs and eager calls differ by {gap} (bar {tol})")
+        out[name] = {"bit_equal": equal, "max_abs_gap": gap, "bar": tol}
+    return out
+
+
+def replay_profile(engine, call, what):
+    """One replayed request under torch.profiler: wall, busy, idle, kernels;
+    the K1 and K2 kernels the device ran must equal the launches the graph
+    accounting added for the request."""
+    before = dict(engine.launches)
+    prof = profile_request(call)
+    added = {name: engine.launches[name] - before[name] for name in before}
+    seen = {"attention_fwd": prof.get("launches_by_group", {}).get("K1 attention_fwd", 0),
+            "mrf_step": prof.get("launches_by_group", {}).get("K2 mrf_step", 0)}
+    if "kernel_launches" not in prof or seen != added:
+        raise AssertionError(f"{what}: the profiler saw {seen} kernels, the graph accounting "
+                             f"added {added} ({prof.get('device_ms')})")
+    prof["launches_per_replay"] = added
+    log(f"{what} replayed under the profiler: wall {prof['wall_ms']:.2f} ms, busy "
+        f"{prof['device_ms']:.2f} ms, idle {prof['idle_share']:.3f}, {prof['kernel_launches']} "
+        f"kernels; K1, K2 by the profiler {seen} = by the graph accounting")
+    return prof
+
+
+def drive_engine(engine, label, want, wav_dtype, tol):
+    """The main path's two requests through a warmed engine's graphs, with
+    the counts set to 0 just before and read just after (replayed launches
+    as `want`, none eager); against the same calls eager on the card (`tol`:
+    the bar of a gap, in waveform units); 20 low-latency walls and one
+    profiled replay of each request kind."""
+    seeds = list(range(100, 100 + len(TEXTS)))
+    warm = warm_engine(engine, [((len(TEXTS),), TEXTS[2]), ((1,), LONG_TEXT)])
+    log(f"{label} engine warm-up: {warm['graphs']} graphs captured in "
+        f"{warm['capture_s']:.1f} s, pool {warm['pool_bytes']} bytes")
+
+    reset_serving_counts(engine)
+    wavs, info, wav_ll, info_ll = serve_requests(engine, seeds)
+    counts, eager = dict(engine.launches), wrapper_counts()
+    log(f"{label} path launches by graph replay {counts} (expected {want}); eager "
+        f"{eager} (expected none)")
+    if counts != want or any(eager.values()):
+        raise AssertionError(f"kernel launches {counts} replayed and {eager} eager, "
+                             f"expected {want} replayed and none eager")
+    check_waveforms(wavs, info, wav_ll, info_ll, wav_dtype)
+    gaps = eager_vs_graphs(engine, seeds, wavs, info, wav_ll, info_ll, tol)
+    log(f"{label} engine, graphs vs the same calls eager on the card: {gaps}")
+
+    repeats = [serve_requests(engine, seeds) for _ in range(3)]  # steady state, uncounted
+    ll_walls = [engine.synthesise_lowlatency(LONG_TEXT, seed=7, budget=1024)[1]["wall_s"]
+                for _ in range(20)]
+    profile = {"lowlatency": replay_profile(
+                   engine, lambda: engine.synthesise_lowlatency(LONG_TEXT, seed=7, budget=1024),
+                   f"low-latency request ({label})"),
+               "synthesise": replay_profile(
+                   engine, lambda: engine.synthesise(TEXTS, seeds=seeds),
+                   f"synthesise, 4 texts ({label})")}
+    log(f"{label} low-latency wall over 20 requests: median "
+        f"{1e3 * float(np.median(ll_walls)):.2f} ms, max {1e3 * max(ll_walls):.2f} ms")
+    return {
+        "warmup": warm,
+        "synthesise": {"requests": len(TEXTS), "budget": info["budget"],
+                       "mel_lengths": info["mel_lengths"], "wall_s": info["wall_s"],
+                       "rtf": info["rtf"], "wall_s_repeats": [r[1]["wall_s"] for r in repeats]},
+        "lowlatency": {"budget": 1024, "mel_lengths": info_ll["mel_lengths"],
+                       "wall_s": info_ll["wall_s"], "rtf": info_ll["rtf"],
+                       "wall_s_repeats": [r[3]["wall_s"] for r in repeats],
+                       "wall_s_20": ll_walls, "wall_ms_median": 1e3 * float(np.median(ll_walls)),
+                       "wall_ms_max": 1e3 * max(ll_walls)},
+        "launches": counts,
+        "eager_vs_graphs": gaps,
+        "profile": profile,
+    }
+
+
 def serve_main_path(dev, mcfg, hcfg, seed):
-    """Serve 4 texts and one 1024-frame low-latency request through the
-    kernels; returns the engine's numbers."""
-    from matcha_tpu_torch.ops.attention import attention
-    from matcha_tpu_torch.ops.mrf import mrf_step
+    """Serve 4 texts and one 1024-frame low-latency request through the CUDA
+    graphs of a bf16 HiFi-GAN engine; returns the engine's numbers."""
     from matcha_tpu_torch.serve import ServeConfig, TTSEngine
 
     msd, gsd = model_weights(mcfg, hcfg, seed)
     scfg = ServeConfig(bf16=True, vocoder="hifigan", output_dtype="int16")
     engine = TTSEngine(msd, mcfg, scfg, gsd, hcfg, device=dev)
-    seeds = list(range(100, 100 + len(TEXTS)))
-    t0 = time.perf_counter()
-    engine.warmup((1, len(TEXTS)))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    attention.launches = 0
-    mrf_step.launches = 0
-    wavs, info = engine.synthesise(TEXTS, seeds=seeds)
-    wav_ll, info_ll = engine.synthesise_lowlatency(LONG_TEXT, seed=7, budget=1024)
-    counts = {"attention_fwd": attention.launches, "mrf_step": mrf_step.launches}
-
     decodes = 2  # one request group, one low-latency request
     want = {"attention_fwd": decodes * scfg.n_timesteps
             * sum(n for n, _ in attention_shapes(mcfg.decoder, 1024)),
             "mrf_step": decodes * len(mrf_shapes(hcfg, 1))}
-    log(f"main path launches {counts} (expected {want})")
-    if counts != want:
-        raise AssertionError(f"kernel launches {counts}, expected {want}")
-    hop = 256
-    for wav, ml in list(zip(wavs, info["mel_lengths"])) + [(wav_ll, info_ll["mel_lengths"][0])]:
-        if wav.dtype != np.int16 or wav.shape != (ml * hop,) or ml < 8:
-            raise AssertionError(f"waveform {wav.dtype} {wav.shape} for {ml} mel frames")
-        if np.abs(wav.astype(np.int32)).max() == 0:
-            raise AssertionError("silent waveform")
-    if info_ll["budget"] != 1024 or any(info["truncated"]) or info_ll["truncated"]:
-        raise AssertionError(f"budgets {info['budget']}/{info_ll['budget']}, truncation "
-                             f"{info['truncated']}/{info_ll['truncated']}")
+    # int16 of a bf16 chain: any gap would be another kernel or algorithm
+    # choice; bar: the float waveform's 1e-3 in 16-bit steps
+    return drive_engine(engine, "HiFi-GAN, bf16", want, np.int16, TOL_WAV * 32767)
 
-    repeats = [(engine.synthesise(TEXTS, seeds=seeds)[1],
-                engine.synthesise_lowlatency(LONG_TEXT, seed=7, budget=1024)[1])
-               for _ in range(3)]  # steady state, uncounted
-    profile = {"lowlatency": profile_request(
-                   lambda: engine.synthesise_lowlatency(LONG_TEXT, seed=7, budget=1024)),
-               "synthesise": profile_request(lambda: engine.synthesise(TEXTS, seeds=seeds))}
-    return {
-        "warmup_s": warm_s,
-        "synthesise": {"requests": len(TEXTS), "budget": info["budget"],
-                       "mel_lengths": info["mel_lengths"], "wall_s": info["wall_s"],
-                       "rtf": info["rtf"], "wall_s_repeats": [a["wall_s"] for a, _ in repeats]},
-        "lowlatency": {"budget": 1024, "mel_lengths": info_ll["mel_lengths"],
-                       "wall_s": info_ll["wall_s"], "rtf": info_ll["rtf"],
-                       "wall_s_repeats": [b["wall_s"] for _, b in repeats]},
-        "launches": counts,
-        "profile": profile,
-    }
+
+# The Griffin-Lim engine's mel statistics. A trained decoder's output is
+# normalised (about unit spread), and the reference's LJSpeech statistics
+# (mean -5.536622, std 2.116101) map it into speech's log-mel range, about
+# [-11.5, 2]. Random weights put the output at about 4x that spread, and
+# Griffin-Lim is homogeneous (a mel e^k louder gives a waveform and errors e^k
+# larger), so the absolute 1e-3 waveform bars hold at speech's amplitude only:
+# LJSpeech's mean with a quarter of its std puts these random mels there.
+GL_MEL = {"mel_mean": -5.536622, "mel_std": 2.116101 / 4}
+# 8 concurrent requests: the 4 texts and 4 shorter ones, so that the group
+# splits over two budgets
+SERVE_TEXTS = TEXTS + ["Open the door.", "The sun is out today.",
+                       "Help the woman get back to her feet.", "Kick the ball straight."]
+
+
+def griffin_lim_card_vs_cpu(engine, seed):
+    """`mel_to_audio` at `MelConfig()` on the card and on the CPU, on the mel of
+    the low-latency request (decoded eagerly on the card) and the same phase."""
+    from matcha_tpu_torch.audio.griffin_lim import mel_to_audio
+
+    x, xl = (a.to(engine.device) for a in engine._tokenize([LONG_TEXT]))
+    z, phase = engine._draws(1, 1024, None, [seed])
+    out = engine.model.synthesise_fixed(x, xl, 1024, engine.cfg.n_timesteps, z=z)
+    mel = out["mel"].transpose(1, 2)
+    card = mel_to_audio(engine.cfg.mel_cfg, mel, phase=phase).cpu()
+    cpu = mel_to_audio(engine.cfg.mel_cfg, mel.cpu(), phase=phase.cpu())
+    err = max_err_within(card, cpu, TOL_WAV, 0.0, "Griffin-Lim card vs CPU")
+    res = {"max_abs_err": err, "tol": TOL_WAV, "mel_range": [float(mel.min()), float(mel.max())],
+           "wav_max_abs": float(cpu.abs().max()), "frames": int(out["mel_lengths"][0])}
+    log(f"Griffin-Lim card vs CPU (f32, MelConfig(), 1024 frames): {res}")
+    return res
+
+
+def serve_threads(engine, seed_base=500):
+    """8 threads through `serve()` with distinct seeds: each result equals its
+    solo `synthesise([text], seeds=[seed])` within the JAX tests' 1e-3 (other
+    batch and text padding sum in other orders, and Griffin-Lim's iterations
+    amplify that), and the group splits over at least two budgets."""
+    import threading
+
+    seeds = [seed_base + i for i in range(len(SERVE_TEXTS))]
+    solo = [engine.synthesise([t], seeds=[s]) for t, s in zip(SERVE_TEXTS, seeds)]
+    results = [None] * len(SERVE_TEXTS)
+    engine.start_batching(max_wait_ms=50)
+    try:
+        barrier = threading.Barrier(len(SERVE_TEXTS))
+
+        def run(i):
+            barrier.wait()
+            results[i] = engine.serve(SERVE_TEXTS[i], seeds[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(SERVE_TEXTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or any(r is None for r in results):
+            raise AssertionError("serve() threads did not all return")
+    finally:
+        engine.stop_batching()
+    gaps, budgets = [], []
+    for (wav, info), (want, want_info), text in zip(results, solo, SERVE_TEXTS):
+        if info["budget"] != want_info["budget"] or wav.shape != want[0].shape:
+            raise AssertionError(f"{text!r}: served at {info['budget']} {wav.shape}, solo "
+                                 f"{want_info['budget']} {want[0].shape}")
+        gaps.append(max_err_within(torch.from_numpy(wav), torch.from_numpy(want[0]), TOL_WAV,
+                                   0.0, f"serve() vs solo {text!r}"))
+        budgets.append(info["budget"])
+    if len(set(budgets)) < 2:
+        raise AssertionError(f"the 8 requests took budgets {budgets}, not two")
+    res = {"budgets": budgets, "group_sizes": [i["group_size"] for _, i in results],
+           "max_abs_gap": gaps, "tol": TOL_WAV,
+           "latency_s": [i["latency_s"] for _, i in results]}
+    log(f"serve() from 8 threads: budgets {budgets}, groups {res['group_sizes']}, max gap to "
+        f"solo {max(gaps):.3g} (bar {TOL_WAV})")
+    return res
+
+
+def serve_griffin_lim(dev, mcfg, seed):
+    """A full-width Griffin-Lim engine in f32 at `MelConfig()`: the main path's
+    two requests through its graphs (`drive_engine`), Griffin-Lim card vs
+    CPU, 8 threads through `serve()`."""
+    import dataclasses
+
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.serve import ServeConfig, TTSEngine
+
+    msd = module_weights(MatchaTTS(mcfg), seed, {DURATION_BIAS: 0.3})
+    engine = TTSEngine(msd, dataclasses.replace(mcfg, **GL_MEL), ServeConfig(), device=dev)
+    want = {"attention_fwd": 2 * engine.cfg.n_timesteps
+            * sum(n for n, _ in attention_shapes(mcfg.decoder, 1024)), "mrf_step": 0}
+    res = drive_engine(engine, "Griffin-Lim, f32", want, np.float32, TOL_WAV)
+    res["card_vs_cpu"] = griffin_lim_card_vs_cpu(engine, 7)
+    res["serve_threads"] = serve_threads(engine)
+    res["graphs_after_serve"] = len(engine._stages)
+    res["pool_bytes_after_serve"] = graph_pool_bytes(engine)
+    return res
 
 
 # (group, substring of the kernel's name), first match wins
@@ -560,7 +777,8 @@ KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
                  ("convolution", "conv"),
                  ("convolution", "fprop"), ("convolution", "dgrad"),
                  ("convolution", "nchwtonhwc"), ("convolution", "nhwctonchw"),
-                 ("matmul", "gemm"), ("matmul", "gemv"), ("normalization", "moments"),
+                 ("matmul", "gemm"), ("matmul", "gemv"), ("fft", "fft"),
+                 ("normalization", "moments"),
                  ("normalization", "norm"), ("elementwise", "elementwise"),
                  ("reduction", "reduce"))
 
@@ -579,17 +797,19 @@ def profile_request(call):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return {"wall_ms": wall_ms, "device_ms": "not measured (no CUDA events traced)"}
-    groups, names = {}, {}
+    groups, counts, names = {}, {}, {}
     for e in kernels:
         ms = e.time_range.elapsed_us() / 1e3
         low = e.name.lower()
         group = next((g for g, key in KERNEL_GROUPS if key in low), "other")
         groups[group] = groups.get(group, 0.0) + ms
+        counts[group] = counts.get(group, 0) + 1
         names[e.name[:90]] = names.get(e.name[:90], 0.0) + ms
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-            "kernel_launches": len(kernels), "by_group_ms": groups, "top_kernels_ms": dict(top)}
+            "kernel_launches": len(kernels), "by_group_ms": groups,
+            "launches_by_group": counts, "top_kernels_ms": dict(top)}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1123,46 +1343,48 @@ def main_path_requests(engine):
             ("lowlatency", 1, ll["budget"], ll["mel_lengths"])]
 
 
-def time_kernels(dev, mcfg, hcfg, seed, requests, n_timesteps=10, reps=20):
-    """At every shape the main path gave K1 and K2 (bf16): the kernel against
-    its plain version, then per-launch kernel, plain and library times and
-    each launch's bound."""
+def time_kernels(dev, mcfg, hcfg, seed, requests, path="serve", dtype=torch.bfloat16,
+                 n_timesteps=10, reps=20):
+    """At every shape a serving path gave K1 and K2 (K2 only with a HiFi-GAN
+    `hcfg`): the kernel against its plain version, then per-launch kernel,
+    plain and library times and each launch's bound."""
     from matcha_tpu_torch.ops.mrf import mrf_plan, mrf_step_cuda, mrf_step_plain, pack_weights
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    dcfg, bf16, elt = mcfg.decoder, torch.bfloat16, 2
-    atol, rtol = TOL["bfloat16"]
+    dcfg, name = mcfg.decoder, str(dtype).split(".")[1]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    atol, rtol = TOL_MRF_F32 if dtype == torch.float32 else TOL[name]
     h, d = dcfg.num_heads, dcfg.attention_head_dim
     scale = d ** -0.5
+    common = {"path": path, "dtype": name, "peak_flops": PEAK_FLOPS[dtype]}
     rows = {"attention_fwd": [], "mrf_step": []}
     for req, b, budget, mel_lengths in requests:
         for count, t in attention_shapes(dcfg, budget):
-            q, k, v, bias = attention_inputs(b, h, t, d, bf16, dev, gen, mel_lengths, budget)
+            q, k, v, bias = attention_inputs(b, h, t, d, dtype, dev, gen, mel_lengths, budget)
             rows["attention_fwd"].append({
-                "path": "serve", "dtype": "bfloat16", "peak_flops": PEAK_BF16_FLOPS,
-                "request": req, "shape": [b, h, t, d], "count": count * n_timesteps,
+                **common, "request": req, "shape": [b, h, t, d], "count": count * n_timesteps,
                 "launches": count * n_timesteps, "lse": False,
                 **attention_fwd_row(q, k, v, bias, scale, False, reps)})
-        for c, t, k, dil in mrf_shapes(hcfg, budget):
-            args = mrf_inputs(b, c, t, k, bf16, dev, gen)
+        for c, t, k, dil in (mrf_shapes(hcfg, budget) if hcfg is not None else []):
+            args = mrf_inputs(b, c, t, k, dtype, dev, gen)
             packed = pack_weights(args[1], args[3])  # once, as ResBlock1 packs its weights
             err = max_err_within(mrf_step_cuda(*args, dil, packed), mrf_step_plain(*args, dil),
-                                 atol, rtol, f"K2 bf16 {req} {[b, c, t]} k={k} d={dil}")
+                                 atol, rtol, f"K2 {name} {req} {[b, c, t]} k={k} d={dil}")
             flops, nbytes = mrf_work(b, c, t, k, elt)
             rows["mrf_step"].append({
-                "path": "serve", "dtype": "bfloat16", "peak_flops": PEAK_BF16_FLOPS,
-                "request": req, "shape": [b, c, t], "k": k, "d": dil, "count": 1, "launches": 1,
-                "max_abs_err": err, "flops": flops, "bytes": nbytes,
+                **common, "request": req, "shape": [b, c, t], "k": k, "d": dil, "count": 1,
+                "launches": 1, "max_abs_err": err, "flops": flops, "bytes": nbytes,
                 "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
                 "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
                 "library_ms": None,
                 # the launch's tiling; its shared memory is dynamic, so ptxas does not show it
                 "plan": mrf_plan(b, c, t, k, dil, elt, sms).__dict__})
     log_rows(rows)
-    for name, rs in rows.items():
-        log(f"{name} bf16 at the serving path's shapes: max abs err "
-            f"{max(r['max_abs_err'] for r in rs):.3g} (tolerance atol {atol} rtol {rtol})")
+    for kernel, rs in rows.items():
+        if rs:
+            log(f"{kernel} {name} at the {path} path's shapes: max abs err "
+                f"{max(r['max_abs_err'] for r in rs):.3g}")
     return rows
 
 
@@ -1315,6 +1537,8 @@ def main(argv=None) -> int:
         f"slope of the probe at 50,000 and 100,000 steps) on {smi}")
     engine = serve_main_path(dev, mcfg, hcfg, args.seed)
     log({"engine": engine})
+    engine_gl = serve_griffin_lim(dev, mcfg, args.seed)
+    log({"engine_griffin_lim": engine_gl})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         training = train_main_path(dev, mcfg, args.seed, Path(tmp))
         e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
@@ -1322,6 +1546,10 @@ def main(argv=None) -> int:
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
         requests = main_path_requests(engine)
         rows = time_kernels(dev, mcfg, hcfg, args.seed, requests)
+        requests_gl = main_path_requests(engine_gl)
+        for name, rs in time_kernels(dev, mcfg, None, args.seed, requests_gl, "serve_gl",
+                                     torch.float32).items():
+            rows[name].extend(rs)
         for name, rs in time_training_kernels(dev, mcfg, args.seed, training_batches(mcfg),
                                               step_ns).items():
             rows.setdefault(name, []).extend(rs)
@@ -1329,13 +1557,17 @@ def main(argv=None) -> int:
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
         steps = time_micro_steps(dev, mcfg, args.seed, Path(tmp))
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
-                              for req, b, budget, _ in requests) + ", bf16"
+                              for req, b, budget, _ in requests) + ", bf16, HiFi-GAN, CUDA graphs"
+    serve_gl_work = " and ".join(f"{req} (batch {b}, budget {budget})"
+                                 for req, b, budget, _ in requests_gl) + \
+        ", f32, Griffin-Lim, CUDA graphs"
     train_work = (f"Trainer.fit at batch 16 on {TRAIN_ITEMS} synthetic items, "
                   f"{training['micro_steps_an_epoch']} micro-steps and "
                   f"{training['val_batches_an_epoch']} validation batch an epoch: fp32 1 epoch, "
                   f"bf16 1 epoch, bf16 resumed for a second (validation in fp32)")
-    line = kernel_line(rows, errs, {"serve": engine["launches"], "train": training["launches"]},
-                       {"serve": serve_work, "train": train_work})
+    line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
+                                    "train": training["launches"]},
+                       {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work})
     for k in line["kernels"]:
         if k["name"] == "mas":
             k["chain_step_ns"] = step_ns
@@ -1343,7 +1575,7 @@ def main(argv=None) -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
-         "chain_step_ns": step_ns, "engine": engine,
+         "chain_step_ns": step_ns, "engine": engine, "engine_griffin_lim": engine_gl,
          "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))

@@ -49,7 +49,8 @@ from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device(None),
              lambda: TTSEngine(MatchaTTS(tiny_config()).state_dict(), tiny_config(),
-                               ServeConfig(), Generator(HiFiGANConfig(num_mels=8)).state_dict(),
+                               ServeConfig(vocoder="hifigan"),
+                               Generator(HiFiGANConfig(num_mels=8)).state_dict(),
                                HiFiGANConfig(num_mels=8)),
              lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir"))):
     try:

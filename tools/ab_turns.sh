@@ -9,6 +9,7 @@
 #   mrf         tools/time_mrf_stages.py, K2 stage by stage;
 #   mas         tools/time_mas.py, whole maximum_path calls at the training
 #               path's shapes;
+#   serve       tools/time_serve.py, the serving engine's two request kinds;
 #   chip_smoke  each tree's own chip_smoke.py.
 # Each step runs in the order parent, change, change, parent; the timing tools
 # run this checkout's timing code on each tree's matcha_tpu_torch. Results and
@@ -27,6 +28,8 @@ for step in $steps; do
              > "$out/stages_$run.log" 2>&1 ;;
       mas) python3 tools/time_mas.py --tree "$tree" --out "$out/mas_$run.json" \
              > "$out/mas_$run.log" 2>&1 ;;
+      serve) python3 tools/time_serve.py --tree "$tree" --out "$out/serve_$run.json" \
+               > "$out/serve_$run.log" 2>&1 ;;
       chip_smoke) (cd "$tree" && python3 chip_smoke.py --out "$out/cs_$run.json" \
                     > "$out/cs_$run.log" 2>&1) ;;
       *) echo "unknown step $step"; exit 2 ;;
