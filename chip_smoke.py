@@ -37,8 +37,20 @@ PyTorch built for CUDA. In order:
    budgets, each equal to its solo synthesis;
 4. the training path: `Trainer.fit` at full width on 64 synthetic items
    (batch 16: 4 micro-steps, 2 updates and a validation batch an epoch), one
-   epoch in fp32, one in bf16, then the bf16 run resumed for a second, with
-   the launch counts set to 0 just before and read just after;
+   epoch in fp32, one in bf16, then the bf16 run resumed for a second at
+   steps_per_dispatch 2, every micro-step a CUDA graph replay, with the
+   counts set to 0 just before and read just after (the replays' K1, K4 and
+   MAS launches as derived; eager launches only in the graphs' captures and
+   warm-ups and in validation). Then the training graphs on a bucket set
+   (128 items of 300-400 frames): the same micro-steps eagerly and as K = 2
+   and 1-step replays, fp32 and bf16 (metrics within their bars, parameters
+   within the drift bars, bit equality reported beside a second eager run);
+   a `fit` epoch at K = 1 against K = 4 (per-step logs within rtol 1e-4),
+   its profile trace holding the graphs' kernels; one replay with remat
+   "full" and "dots" against none; launches per replay by the graph
+   accounting and by the profiler's kernel names; micro-step walls (median
+   of 20 replays, 10 eager steps), busy, idle, host calls a dispatch,
+   capture seconds and the graph pool's bytes;
 5. holds the port on the card against itself on the CPU in float32 with TF32
    off (one served text; one training forward and backward, losses and
    gradients) and against the frozen reference outputs of
@@ -50,8 +62,7 @@ PyTorch built for CUDA. In order:
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
    T=448 in both dtypes; times K2 at every (C, T, k, d) of a 1024-frame
    request and of a batch of 4 at 512, in both dtypes, beside its plain
-   version, the unfused PyTorch sequence and its bound, summed by stage;
-   times training micro-steps at batch 16 and profiles one in each precision.
+   version, the unfused PyTorch sequence and its bound, summed by stage.
 
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,6 +73,7 @@ build/chip_smoke.json.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -893,7 +905,8 @@ def golden_on_card(dev):
 
 # ---------------------------------------------------------------- training path
 TRAIN_ITEMS, VAL_ITEMS = 64, 8  # 4 micro-steps (2 updates) and 1 validation batch an epoch
-TRAIN_RUNS = (("fp32", 1), ("bf16", 1), ("bf16", 2))  # the last resumes the second
+# (precision, epochs, steps_per_dispatch); the last run resumes the second
+TRAIN_RUNS = (("fp32", 1, 1), ("bf16", 1, 1), ("bf16", 2, 2))
 
 
 def training_data(mcfg):
@@ -918,50 +931,115 @@ def read_metrics(ckpt_dir):
     return ([r for r in rows if "train/loss" in r], [r for r in rows if "val/loss" in r])
 
 
+def per_micro_step(mcfg, remat=None):
+    """Launches of one training micro-step: MAS 1 (K3a and K3b fused), K1 once
+    per transformer block (twice under remat: the backward's recompute reruns
+    the block's forward), K4 2 per block (dq, then dk/dv/dbias)."""
+    n_attn = sum(n for n, _ in attention_shapes(mcfg.decoder, 1))
+    return {"mas": 1, "attention_fwd": n_attn * (1 if remat is None else 2),
+            "attention_bwd": 2 * n_attn}
+
+
+def check_graph_launches(trainer, mcfg, remat=None):
+    """Every graph of `trainer` recorded, at capture and in its warm-up run,
+    K times the launches of a micro-step."""
+    step = per_micro_step(mcfg, remat)
+    for key, g in trainer.graphs.items():
+        want = {n: g.k * c for n, c in step.items()}
+        if g.launches != want or g.warmup_launches != want:
+            raise AssertionError(f"graph {key}: captured {g.launches}, warm-up "
+                                 f"{g.warmup_launches}, expected {want} each")
+
+
+def graph_summary(trainer):
+    return {"graphs": [{"key": list(key), "k": g.k, "capture_s": g.capture_s,
+                        "launches_per_replay": g.launches} for key, g in trainer.graphs.items()],
+            "replays": {str(k): n for k, n in trainer.replays.items()},
+            "pool_bytes": graph_pool_bytes(trainer)}
+
+
 def train_main_path(dev, mcfg, seed, root):
-    """`Trainer.fit` at full width on 64 synthetic items: one epoch in fp32, one in
-    bf16, then the bf16 run resumed for a second epoch. The launch counts are
-    set to 0 just before and read just after, and must be as derived: per
-    micro-step MAS 1 (K3a and K3b fused), K1 6 and K4 12 (6 backward calls of
-    2 launches), per validation batch MAS 1, K1 6."""
+    """`Trainer.fit` at full width on 64 synthetic items through the trainer's
+    CUDA graphs: one epoch in fp32, one in bf16, then the bf16 run resumed for
+    a second epoch at steps_per_dispatch 2. The counts are set to 0 just
+    before and read just after. The replays must have run, per micro-step, MAS
+    1 (K3a and K3b fused), K1 6 and K4 12 (6 backward calls of 2 launches);
+    the wrappers may tick only in each graph's capture and warm-up run and in
+    validation (MAS 1, K1 6 per batch, eager): no training step ran eagerly.
+    The path's launches are the replays' and validation's."""
     from matcha_tpu_torch.data.dataset import num_batches
     from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 
     train_ds, val_ds, dcfg = training_data(mcfg)
-    counters = launch_counters()
+    counters = {n: fn for n, fn in launch_counters().items() if n != "mrf_step"}
+    # validation images (where TensorBoard and matplotlib import) decode with
+    # K1 eagerly: their launches are counted apart
+    rendered = {n: 0 for n in counters}
+    render = Trainer._log_validation_images
+
+    def counted_render(self, *a, **kw):
+        before = {n: fn.launches for n, fn in counters.items()}
+        render(self, *a, **kw)
+        for n, fn in counters.items():
+            rendered[n] += fn.launches - before[n]
+
     for fn in counters.values():
         fn.launches = 0
+    replayed = {n: 0 for n in counters}
+    captured = {n: 0 for n in counters}
     runs = []
-    for precision, epochs in TRAIN_RUNS:
+    Trainer._log_validation_images = counted_render
+    for precision, epochs, k in TRAIN_RUNS:
         ckpt = root / precision
         trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(ckpt), log_every=1, seed=seed,
-                                            precision=precision), dcfg, device=dev)
+                                            precision=precision, steps_per_dispatch=k),
+                          dcfg, device=dev)
         t0 = time.perf_counter()
         step = trainer.fit(train_ds, val_ds, max_epochs=epochs)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_graph_launches(trainer, mcfg)
+        for n in counters:
+            replayed[n] += trainer.launches[n]
+            captured[n] += sum(g.launches[n] + g.warmup_launches[n]
+                               for g in trainer.graphs.values())
         train_rows, val_rows = read_metrics(ckpt)
-        runs.append({"precision": precision, "epochs": epochs, "step": step,
-                     "updates": trainer.optimizer.count, "wall_s": time.perf_counter() - t0,
+        runs.append({"precision": precision, "epochs": epochs, "steps_per_dispatch": k,
+                     "step": step, "updates": trainer.optimizer.count, "wall_s": wall,
                      "checkpoints": [e["step"] for e in trainer.checkpoints.entries],
+                     **graph_summary(trainer),
                      "train": [{k: r[k] for k in r if k.startswith("train/")} for r in train_rows],
                      "val": [{k: r[k] for k in r if k.startswith("val/")} for r in val_rows]})
-    counts = {name: fn.launches for name, fn in counters.items() if name != "mrf_step"}
+        del trainer
+    Trainer._log_validation_images = render
+    ticks = {n: fn.launches for n, fn in counters.items()}
 
     micro = num_batches(TRAIN_ITEMS, dcfg)
     val_batches = num_batches(VAL_ITEMS, dcfg, drop_last=False)
     epochs = len(TRAIN_RUNS)  # each run trains one epoch (the third resumes at epoch 1)
-    n_attn = sum(n for n, _ in attention_shapes(mcfg.decoder, 1))
-    want = {"mas": epochs * (micro + val_batches),
-            "attention_fwd": epochs * (micro + val_batches) * n_attn,
-            "attention_bwd": epochs * micro * n_attn * 2}
-    log(f"training path launches {counts} (expected {want})")
-    if counts != want:
-        raise AssertionError(f"training kernel launches {counts}, expected {want}")
+    step_launches = per_micro_step(mcfg)
+    want = {n: epochs * micro * c for n, c in step_launches.items()}
+    validation = {"mas": epochs * val_batches,
+                  "attention_fwd": epochs * val_batches * step_launches["attention_fwd"],
+                  "attention_bwd": 0}
+    eager = {n: ticks[n] - captured[n] - rendered[n] for n in ticks}
+    # a validation image is one 10-step decode: K1 only
+    per_image = 10 * step_launches["attention_fwd"]
+    log(f"training path launches by graph replay {replayed} (expected {want}); eager "
+        f"{eager} (expected validation's {validation}); at capture and warm-up {captured}; "
+        f"validation images {rendered}")
+    if replayed != want or eager != validation or rendered["attention_fwd"] % per_image \
+            or rendered["mas"] or rendered["attention_bwd"]:
+        raise AssertionError(f"training kernel launches: replayed {replayed}, eager {eager}; "
+                             f"expected {want} and {validation}")
+    counts = {n: replayed[n] + validation[n] for n in counters}
     for r in runs:
-        log(f"fit {r['precision']} to epoch {r['epochs']}: step {r['step']}, {r['updates']} "
-            f"updates, {r['wall_s']:.1f} s, checkpoints {r['checkpoints']}, train loss "
-            f"{[round(t['train/loss'], 4) for t in r['train']]}, val loss "
-            f"{[round(v['val/loss'], 4) for v in r['val']]}")
+        log(f"fit {r['precision']} to epoch {r['epochs']} at K={r['steps_per_dispatch']}: step "
+            f"{r['step']}, {r['updates']} updates, {r['wall_s']:.1f} s, checkpoints "
+            f"{r['checkpoints']}, {len(r['graphs'])} graphs captured in "
+            f"{sum(g['capture_s'] for g in r['graphs']):.2f} s, replays {r['replays']}, pool "
+            f"{r['pool_bytes']} bytes, train loss {[round(t['train/loss'], 4) for t in r['train']]}"
+            f", val loss {[round(v['val/loss'], 4) for v in r['val']]}")
         losses = [t[k] for t in r["train"] for k in t] + [v[k] for v in r["val"] for k in v]
         if not (r["train"] and r["val"] and all(math.isfinite(x) for x in losses)):
             raise AssertionError(f"fit {r['precision']}: missing or non-finite metrics")
@@ -969,8 +1047,320 @@ def train_main_path(dev, mcfg, seed, root):
     if (runs[0]["step"], runs[1]["step"], resumed["step"]) != (micro, micro, 2 * micro) \
             or resumed["updates"] != 2 * micro // 2 or resumed["checkpoints"] != [micro, 2 * micro]:
         raise AssertionError(f"steps, updates or checkpoints of the runs: {runs}")
-    return {"runs": runs, "launches": counts, "micro_steps_an_epoch": micro,
-            "val_batches_an_epoch": val_batches}
+    return {"runs": runs, "launches": counts, "replayed": replayed, "eager": eager,
+            "validation_images": rendered,
+            "micro_steps_an_epoch": micro, "val_batches_an_epoch": val_batches}
+
+
+# ---------------------------------------------------------------- training graphs
+BUCKET_ITEMS = 128  # 300-400 frames: an epoch of 8 batches, most of them one shape
+# per-step losses and grad_norm (rtol, atol): fp32 the bar of tests/test_train.py:283-291;
+# bf16, whose U-Net rounds every activation to 8 bits, one bf16 rounding (2^-9)
+TOL_STEP = {"fp32": (2e-5, 1e-6), "bf16": (2 ** -9, 1e-6)}
+TOL_FIT = (1e-4, 1e-5)  # K = 1 against K = 4 logs: tests/test_train.py:345-386
+# final parameters: within 3 learning rates, fewer than 2 % of elements past 1e-6
+# (AdamW turns ulps of the gradient into sign flips where it is ~0)
+
+
+def bucket_batches(mcfg):
+    """The bucket set (batch 16, 128 items of 300-400 frames) and its epoch-0
+    batches, largest shape group first."""
+    from matcha_tpu_torch.data.dataset import DataConfig, SyntheticDataset, batch_iterator
+
+    train_ds = SyntheticDataset(n_items=BUCKET_ITEMS, n_mels=mcfg.n_feats, seed=2,
+                                min_frames=300, max_frames=400)
+    val_ds = SyntheticDataset(n_items=VAL_ITEMS, n_mels=mcfg.n_feats, seed=1)
+    dcfg = DataConfig()
+    by_shape = {}
+    for i, b in enumerate(batch_iterator(train_ds, dcfg, epoch=0)):
+        b.pop("n_real")
+        by_shape.setdefault(b["y"].shape[1], []).append((b, i))
+    groups = sorted(by_shape.values(), key=len, reverse=True)
+    return train_ds, val_ds, dcfg, groups
+
+
+def param_gap(a, b, lr):
+    gaps = torch.cat([(x.detach() - y.detach()).abs().flatten() for x, y in zip(a, b)])
+    res = {"max_abs": float(gaps.max()), "share_over_1e-6": float((gaps > 1e-6).float().mean()),
+           "bit_equal": bool(gaps.max() == 0)}
+    if res["max_abs"] >= 3 * lr or res["share_over_1e-6"] >= 0.02:
+        raise AssertionError(f"parameters apart by {res} (bars: < {3 * lr}, < 2 %)")
+    return res
+
+
+def metric_gap(got, want, what, precision="fp32"):
+    """Per-step metrics (steps, 5) against (steps, 5) within TOL_STEP."""
+    rtol, atol = TOL_STEP[precision]
+    got, want = got.double().cpu(), want.double().cpu()
+    over = (got - want).abs() > atol + rtol * want.abs()
+    if bool(over.any()):
+        raise AssertionError(f"{what}: metrics {got.tolist()} against {want.tolist()}")
+    return {"max_abs": float((got - want).abs().max()), "bit_equal": bool(torch.equal(got, want))}
+
+
+def replay_accounting(trainer, call, what):
+    """One dispatch under the profiler: the K1, K4 and MAS kernels the device
+    ran equal the launches the graph accounting added, and no wrapper ticked
+    (nothing ran eagerly)."""
+    counters = {n: fn for n, fn in launch_counters().items() if n != "mrf_step"}
+    before, ticks = dict(trainer.launches), {n: fn.launches for n, fn in counters.items()}
+    prof = profile_request(call)
+    added = {n: trainer.launches[n] - before[n] for n in before}
+    by = prof.get("launches_by_group", {})
+    seen = {"attention_fwd": by.get("K1 attention_fwd", 0),
+            "attention_bwd": by.get("K4 attention_bwd", 0), "mas": by.get("K3a+K3b mas", 0)}
+    eager = {n: fn.launches - ticks[n] for n, fn in counters.items()}
+    if "kernel_launches" not in prof or seen != added or any(eager.values()):
+        raise AssertionError(f"{what}: the profiler saw {seen}, the graph accounting added "
+                             f"{added}, eager {eager}")
+    prof["launches_per_replay"] = added
+    return prof
+
+
+def graphs_vs_eager(dev, mcfg, seed, root, groups):
+    """The same 4 micro-steps (one shape, accumulation 2) eagerly through
+    `train_step` and as one K = 2 replay and two 1-step replays, from the same
+    state and seeds, fp32 and bf16: per-step metrics within TOL_STEP, final
+    parameters within the drift bars; bit equality reported, beside a second
+    eager run of the same steps (the card's own run-to-run spread). One more
+    K = 2 replay under the profiler checks its accounting."""
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    chunk = groups[0][:4]
+    res = {}
+    for precision in ("fp32", "bf16"):
+        eager, again, graph = (
+            Trainer(mcfg, TrainConfig(ckpt_dir=str(root / f"{name}_{precision}"), seed=seed,
+                                      precision=precision), device=dev)
+            for name in ("eager", "again", "graph"))
+        for t in (eager, again, graph):
+            t.init_optimizer(8)
+        want, want2 = (torch.stack([torch.stack(list(t.train_step(b, 0, i).values()))
+                                    for b, i in chunk]) for t in (eager, again))
+        got = torch.cat([graph.dispatch(part, 0).clone()
+                         for part in (chunk[:2], chunk[2:3], chunk[3:])])
+        check_graph_launches(graph, mcfg)
+        lr = graph.train_cfg.lr
+        r = {"metrics": metric_gap(got, want, f"graphs vs eager {precision}", precision),
+             "params": param_gap(graph.params, eager.params, lr),
+             "eager_again": {"metrics": metric_gap(want2, want, f"eager vs eager {precision}",
+                                                   precision),
+                             "params": param_gap(again.params, eager.params, lr)},
+             "replays": {str(k): n for k, n in graph.replays.items()}}
+        if graph.replays != {2: 1, 1: 2} or len(graph.graphs) != 3:
+            raise AssertionError(f"replays {graph.replays} of {len(graph.graphs)} graphs")
+        r["profile_k2"] = replay_accounting(graph, lambda: graph.dispatch(chunk[:2], 0),
+                                            f"K=2 replay {precision}")
+        log(f"training graphs vs eager on the card, {precision}, 4 micro-steps at "
+            f"{list(chunk[0][0]['y'].shape)}: metrics {r['metrics']}, parameters {r['params']} "
+            f"(bars: rtol, atol {TOL_STEP[precision]}; < {3 * lr}, < 2 %); a second eager "
+            f"run vs the first: {r['eager_again']}; K=2 replay: "
+            f"{r['profile_k2']['launches_per_replay']} by the profiler = by the accounting")
+        res[precision] = r
+        del eager, again, graph
+    return res
+
+
+def trace_kernel_names(trace_dir):
+    """Names of the device kernels in the one Chrome trace in `trace_dir`."""
+    traces = list(Path(trace_dir).glob("trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} traces in {trace_dir}, expected 1")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def k_independence(dev, mcfg, seed, root, train_ds, val_ds, dcfg):
+    """A `fit` epoch on the bucket set at K = 1 and at K = 4 (fp32): equal
+    per-step logs within TOL_FIT; the K = 4 run replayed K-step and 1-step
+    graphs and traced dispatches 2-3 into `profile_dir`, whose trace holds
+    the graphs' K1, K4 and MAS kernels."""
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    logs, res = [], {}
+    for k in (1, 4):
+        trace = root / f"trace_k{k}" if k == 4 else None
+        cfg = TrainConfig(ckpt_dir=str(root / f"bucket_k{k}"), log_every=1, seed=seed,
+                          steps_per_dispatch=k,
+                          profile_dir=None if trace is None else str(trace))
+        trainer = Trainer(mcfg, cfg, dcfg, device=dev)
+        t0 = time.perf_counter()
+        trainer.fit(train_ds, val_ds, max_epochs=1)
+        res[f"k{k}"] = {"wall_s": time.perf_counter() - t0, **graph_summary(trainer)}
+        logs.append({r["step"]: r for r in read_metrics(cfg.ckpt_dir)[0]})
+        del trainer
+    rtol, atol = TOL_FIT
+    worst = 0.0
+    for s, row in logs[0].items():
+        for key, v in row.items():
+            if key.startswith("train/"):
+                w = logs[1][s][key]
+                if abs(w - v) > atol + rtol * abs(v):
+                    raise AssertionError(f"step {s} {key}: K=1 {v}, K=4 {w}")
+                worst = max(worst, abs(w - v))
+    replays = res["k4"]["replays"]
+    if set(logs[0]) != set(logs[1]) or not (replays.get("4", 0) >= 1 and replays.get("1", 0) >= 1):
+        raise AssertionError(f"steps {sorted(logs[0])} / {sorted(logs[1])}, K=4 replays {replays}")
+    kernels = trace_kernel_names(root / "trace_k4")
+    found = {key: sum(key in n for n in kernels) for key in ("attn_fwd", "attn_bwd", "mas_path")}
+    if not all(found.values()):
+        raise AssertionError(f"graph kernels in the trace: {found}")
+    res.update({"steps": len(logs[0]), "max_abs_gap": worst, "bar": TOL_FIT,
+                "trace_kernels": found, "trace_kernel_events": len(kernels)})
+    log(f"fit K=1 vs K=4 on {BUCKET_ITEMS} items of 300-400 frames: {len(logs[0])} steps equal "
+        f"within rtol {rtol}, atol {atol} (largest gap {worst:.3g}); K=4 replays {replays}; "
+        f"trace of dispatches 2-3: {len(kernels)} kernels, graph kernels {found}")
+    return res
+
+
+def remat_replays(dev, mcfg, seed, root, groups):
+    """One 1-step replay from the same state with remat None, "full" and
+    "dots" (fp32, an update each step): metrics and parameters within the
+    bars of no remat; launches per replay as derived, by the profiler."""
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    chunk = groups[0][:1]
+    res, base = {}, None
+    for remat in (None, "full", "dots"):
+        cfg_m = dataclasses.replace(mcfg, decoder=dataclasses.replace(mcfg.decoder, remat=remat))
+        trainer = Trainer(cfg_m, TrainConfig(ckpt_dir=str(root / f"remat_{remat}"), seed=seed,
+                                             accumulate_steps=1), device=dev)
+        trainer.init_optimizer(8)
+        out = trainer.dispatch(chunk, 0).clone()
+        check_graph_launches(trainer, mcfg, remat)
+        if base is None:
+            base = (out, [p.detach().clone() for p in trainer.params])
+            name = "none"
+        else:
+            name = remat
+            res[name] = {"metrics": metric_gap(out, base[0], f"remat {remat}"),
+                         "params": param_gap(trainer.params, base[1], trainer.train_cfg.lr)}
+        prof = replay_accounting(trainer, lambda: trainer.dispatch(chunk, 0),
+                                 f"remat {remat} replay")
+        res.setdefault(name, {})["launches_per_replay"] = prof["launches_per_replay"]
+        res[name]["busy_ms"] = prof["device_ms"]
+        del trainer
+    log(f"remat, one 1-step replay each at {list(chunk[0][0]['y'].shape)} (fp32): {res}")
+    return res
+
+
+def host_calls(call):
+    """{CUDA runtime call: count} the host made during `call`, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+             "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in names:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def synced_walls(call, reps):
+    """Host wall ms of `reps` calls, each ended by a device synchronise."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def per_step_profile(call, steps=2):
+    """`profile_request` of `steps` consecutive micro-steps (2: an accumulation,
+    one that emits no update and one that does), with busy ms, profiled wall
+    and kernels per micro-step."""
+    prof = profile_request(lambda: [call() for _ in range(steps)])
+    prof["steps"] = steps
+    if isinstance(prof.get("device_ms"), float):
+        prof.update(busy_ms_per_step=prof["device_ms"] / steps,
+                    wall_ms_per_step=prof["wall_ms"] / steps,
+                    kernels_per_step=prof["kernel_launches"] / steps)
+    return prof
+
+
+def time_micro_steps(dev, mcfg, seed, root, groups, graph_reps=20, eager_reps=10):
+    """A training micro-step at batch 16, fp32 and bf16, at the bucket set's
+    two largest shapes: the median wall of `graph_reps` 1-step replays and of
+    `eager_reps` eager `train_step`s (each ended by a synchronise; steps
+    alternate between accumulating and emitting an update, as in training),
+    and of K = 4 replays over 4; two replays and two eager steps profiled
+    (busy, idle, kernels a micro-step); the host's CUDA calls a dispatch;
+    capture seconds and the pool's bytes."""
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    res = {}
+    for precision in ("fp32", "bf16"):
+        trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(root / f"timing_{precision}"), seed=seed,
+                                            precision=precision), device=dev)
+        trainer.init_optimizer(8)
+        shapes = []
+        for group in groups[:2]:
+            one = group[:1]
+            b, i = one[0]
+
+            def graph_step():
+                trainer.dispatch(one, 0)
+
+            def eager_step():
+                trainer.train_step(b, 0, i)
+
+            for call in (graph_step, graph_step, eager_step):  # capture both emit patterns
+                call()
+            graph_ms = synced_walls(graph_step, graph_reps)
+            eager_ms = synced_walls(eager_step, eager_reps)
+            prof, prof_eager = per_step_profile(graph_step), per_step_profile(eager_step)
+            row = {"tx_ty": [b["x"].shape[1], b["y"].shape[1]],
+                   "graph_ms": graph_ms, "graph_ms_median": float(np.median(graph_ms)),
+                   "eager_ms": eager_ms, "eager_ms_median": float(np.median(eager_ms)),
+                   "profile_graph": prof, "profile_eager": prof_eager,
+                   "host_calls_graph": host_calls(graph_step),
+                   "host_calls_eager": host_calls(eager_step)}
+            busy = prof.get("busy_ms_per_step", "not measured")
+            if isinstance(busy, float):
+                row["idle_share_unprofiled"] = 1.0 - busy / row["graph_ms_median"]
+            if len(group) >= 4:
+                four = group[:4]
+                trainer.dispatch(four, 0)  # capture (4 steps: 2 accumulations)
+                row["k4_ms_per_step"] = [t / 4 for t in synced_walls(
+                    lambda: trainer.dispatch(four, 0), 5)]
+                row["host_calls_k4"] = host_calls(lambda: trainer.dispatch(four, 0))
+            shapes.append(row)
+            log(f"micro-step {precision} at {row['tx_ty']}, batch 16: graph replay median "
+                f"{row['graph_ms_median']:.2f} ms over {graph_reps} (eager train_step "
+                f"{row['eager_ms_median']:.2f} over {eager_reps}); K=4 per step "
+                f"{row.get('k4_ms_per_step')}; a replayed step busy "
+                f"{busy if isinstance(busy, str) else round(busy, 3)} ms, profiled wall "
+                f"{prof.get('wall_ms_per_step')}, idle unprofiled "
+                f"{row.get('idle_share_unprofiled')}, {prof.get('kernels_per_step')} kernels; "
+                f"an eager step busy {prof_eager.get('busy_ms_per_step')}, "
+                f"{prof_eager.get('kernels_per_step')} kernels; host calls a replay "
+                f"{row['host_calls_graph']}, K=4 {row.get('host_calls_k4')}, eager "
+                f"{sum(row['host_calls_eager'].values())}")
+        res[precision] = {"shapes": shapes, **graph_summary(trainer)}
+        log(f"micro-step {precision}: graphs {res[precision]['graphs']}, pool "
+            f"{res[precision]['pool_bytes']} bytes")
+        del trainer
+    return res
+
+
+def train_graph_checks(dev, mcfg, seed, root):
+    """The training graphs at full width: against eager steps, K-independence,
+    remat, the profile trace, and the micro-step times."""
+    train_ds, val_ds, dcfg, groups = bucket_batches(mcfg)
+    res = {"bucket_shapes": [[list(g[0][0]["y"].shape), len(g)] for g in groups]}
+    log(f"bucket set batches by shape: {res['bucket_shapes']}")
+    res["graphs_vs_eager"] = graphs_vs_eager(dev, mcfg, seed, root, groups)
+    res["k_independence"] = k_independence(dev, mcfg, seed, root, train_ds, val_ds, dcfg)
+    res["remat"] = remat_replays(dev, mcfg, seed, root, groups)
+    res["micro_steps"] = time_micro_steps(dev, mcfg, seed, root, groups)
+    return res
 
 
 def training_batches(mcfg):
@@ -979,7 +1369,7 @@ def training_batches(mcfg):
 
     train_ds, val_ds, dcfg = training_data(mcfg)
     out = []
-    for (precision, epochs), epoch in zip(TRAIN_RUNS, (0, 0, 1)):
+    for (precision, _, _), epoch in zip(TRAIN_RUNS, (0, 0, 1)):
         out += [("train", precision, b) for b in batch_iterator(train_ds, dcfg, epoch=epoch)]
         out += [("val", "fp32", b) for b in batch_iterator(val_ds, dcfg, epoch=0, shuffle=False,
                                                            drop_last=False)]
@@ -1291,50 +1681,6 @@ def train_card_vs_cpu(dev, mcfg, seed):
     return res
 
 
-def time_micro_steps(dev, mcfg, seed, root, repeats=3):
-    """Wall time of a training micro-step at batch 16 (forward, backward,
-    optimizer; host clock around a synchronised step), over the 4 batches of
-    the first epoch, fp32 and bf16; and one profiled micro-step of each on
-    the longest batch."""
-    from matcha_tpu_torch.data.dataset import batch_iterator
-    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
-
-    train_ds, _, dcfg = training_data(mcfg)
-    batches = list(batch_iterator(train_ds, dcfg, epoch=0))
-    for b in batches:
-        b.pop("n_real")
-    longest = max(range(len(batches)), key=lambda i: batches[i]["y"].shape[1])
-    res = {}
-    for precision in ("fp32", "bf16"):
-        trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(root / f"timing_{precision}"),
-                                            seed=seed, precision=precision), dcfg, device=dev)
-        trainer.init_optimizer(len(batches))
-        for i, b in enumerate(batches):  # warm up every shape
-            trainer.train_step(b, 0, i)
-        torch.cuda.synchronize()
-        per_batch = []
-        for i, b in enumerate(batches):
-            times = []
-            for _ in range(repeats):
-                t0 = time.perf_counter()
-                trainer.train_step(b, 0, i)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            per_batch.append({"tx_ty": [b["x"].shape[1], b["y"].shape[1]], "ms": times})
-        mean = float(np.mean([t for pb in per_batch for t in pb["ms"]]))
-        prof = profile_request(lambda: trainer.train_step(batches[longest], 0, longest))
-        res[precision] = {"mean_ms": mean, "per_batch": per_batch, "profile": prof,
-                          "profiled_batch": per_batch[longest]["tx_ty"]}
-        busy = prof.get("device_ms")
-        log(f"micro-step {precision} at batch 16: mean {mean:.1f} ms over "
-            f"{[pb['tx_ty'][1] for pb in per_batch]} frames; profiled (Ty "
-            f"{per_batch[longest]['tx_ty'][1]}): wall {prof['wall_ms']:.1f} ms, device busy "
-            f"{busy if isinstance(busy, str) else round(busy, 2)} ms, idle "
-            f"{prof.get('idle_share', 'not measured')}, {prof.get('kernel_launches')} kernels, "
-            f"by group {prof.get('by_group_ms')}")
-    return res
-
-
 # ---------------------------------------------------------------- phase 5
 def main_path_requests(engine):
     """(name, batch, budget, mel lengths) of the two decodes the main path ran."""
@@ -1541,6 +1887,7 @@ def main(argv=None) -> int:
     log({"engine_griffin_lim": engine_gl})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         training = train_main_path(dev, mcfg, args.seed, Path(tmp))
+        train_graphs = train_graph_checks(dev, mcfg, args.seed, Path(tmp))
         e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
                "golden": golden_on_card(dev),
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
@@ -1555,7 +1902,6 @@ def main(argv=None) -> int:
             rows.setdefault(name, []).extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
-        steps = time_micro_steps(dev, mcfg, args.seed, Path(tmp))
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                               for req, b, budget, _ in requests) + ", bf16, HiFi-GAN, CUDA graphs"
     serve_gl_work = " and ".join(f"{req} (batch {b}, budget {budget})"
@@ -1564,7 +1910,8 @@ def main(argv=None) -> int:
     train_work = (f"Trainer.fit at batch 16 on {TRAIN_ITEMS} synthetic items, "
                   f"{training['micro_steps_an_epoch']} micro-steps and "
                   f"{training['val_batches_an_epoch']} validation batch an epoch: fp32 1 epoch, "
-                  f"bf16 1 epoch, bf16 resumed for a second (validation in fp32)")
+                  f"bf16 1 epoch, bf16 resumed for a second at steps_per_dispatch 2 (validation "
+                  f"in fp32); micro-steps as CUDA graph replays, validation eager")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
                                     "train": training["launches"]},
                        {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work})
@@ -1576,7 +1923,7 @@ def main(argv=None) -> int:
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
          "chain_step_ns": step_ns, "engine": engine, "engine_griffin_lim": engine_gl,
-         "training": training, "e2e": e2e, "micro_steps": steps, "kernel_rows": rows,
+         "training": training, "train_graphs": train_graphs, "e2e": e2e, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))
     log(line)

@@ -1,8 +1,7 @@
-"""Text+mel training batches: the JAX package's data pipeline, numpy only.
+"""Text+mel training data: the JAX package's data pipeline.
 
-A port of `matcha_tpu/data/dataset.py` without `TextMelDataset` (it needs the
-audio port, ROADMAP M7). For a given seed it gives the same arrays and the
-same batch schedule as the JAX package:
+The port of `matcha_tpu/data/dataset.py`. For a given seed it gives the same
+arrays and the same batch schedule as the JAX package:
 
   * batches are bucketed by length and padded to static (Tx, Ty) shapes, Ty a
     multiple of the U-Net's 2**downsamples;
@@ -11,15 +10,25 @@ same batch schedule as the JAX package:
   * `collate` guards the MAS precondition mel_frames >= text_tokens.
 
 Tokenization is the training path's: `english_cleaners`, then char -> id, no EOS.
-`SyntheticDataset` gives deterministic speech-shaped data with the same
-interface, so training runs without a dataset on disk.
+`TextMelDataset` reads `wav_path|text` metadata (an LJSpeech split from
+`data/ljspeech.py`) and caches each file's log-mel on disk under the JAX
+package's file names. `SyntheticDataset` gives deterministic speech-shaped
+data with the same interface, so training runs without a dataset on disk.
+Batches are numpy arrays: this is host-side data preparation, and the
+trainer copies each batch to the device.
 """
 
+import hashlib
+import os
+import struct
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from matcha_tpu_torch.audio.mel import MelConfig, load_wav, mel_spectrogram, num_frames
 from matcha_tpu_torch.ops.masks import fix_len_compatibility
 from matcha_tpu_torch.text import train_text_to_sequence
 
@@ -32,6 +41,89 @@ class DataConfig:
     max_text_len: int = 256
     max_mel_len: int = 1024
     shuffle_seed: int = 0
+
+
+def _wav_num_samples(path) -> int:
+    """Per-channel sample count from the RIFF header, without decoding audio.
+
+    Walks the chunk list (fmt for the block size, data for the payload
+    size), so float32 wavs and files with extra chunks are measured exactly.
+    """
+    with open(path, "rb") as f:
+        riff = f.read(12)
+        if len(riff) < 12 or riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        block_align = None
+        while True:
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                break
+            cid, size = hdr[:4], struct.unpack("<I", hdr[4:])[0]
+            if cid == b"fmt ":
+                fmt = f.read(size + (size & 1))
+                block_align = struct.unpack("<H", fmt[12:14])[0]  # channels * bits / 8
+            elif cid == b"data":
+                if not block_align:
+                    raise ValueError(f"{path}: data chunk before fmt chunk")
+                return max(size // block_align, 1)
+            else:
+                f.seek(size + (size & 1), os.SEEK_CUR)
+    raise ValueError(f"{path}: no data chunk found")
+
+
+class TextMelDataset:
+    """A metadata file of `wav_path|text` lines -> token ids and a cached log-mel.
+
+    Each file's log-mel, (T, n_mels) float32, is computed once on the CPU
+    (`audio.mel.mel_spectrogram`, host-side data preparation like collate)
+    and saved under `cache_dir` (default: `mel_cache` beside the metadata)
+    as `<wav stem>_<sha1 of the path, 16 hex>.npy`, the JAX package's name.
+    """
+
+    def __init__(self, metadata_path, mel_cfg: MelConfig = MelConfig(), cache_dir=None):
+        self.mel_cfg = mel_cfg
+        self.items: List[Tuple[str, str]] = []
+        with open(metadata_path, encoding="utf-8") as f:
+            for line in f:
+                parts = line.strip().split("|")
+                if len(parts) >= 2:
+                    self.items.append((parts[0], parts[1]))
+        if cache_dir is None:
+            cache_dir = Path(metadata_path).parent / "mel_cache"
+        self.cache_dir = Path(cache_dir)
+        self.cache_dir.mkdir(parents=True, exist_ok=True)
+
+    def __len__(self):
+        return len(self.items)
+
+    def _cache_path(self, wav_path: str) -> Path:
+        key = hashlib.sha1(wav_path.encode()).hexdigest()[:16]
+        return self.cache_dir / f"{Path(wav_path).stem}_{key}.npy"
+
+    def _compute_mel(self, wav_path: str) -> np.ndarray:
+        y, _ = load_wav(wav_path)
+        mel = mel_spectrogram(self.mel_cfg, torch.from_numpy(y)[None, :])[0]  # (n_mels, T)
+        return mel.T.numpy().astype(np.float32)
+
+    def get(self, idx: int) -> dict:
+        wav_path, text = self.items[idx]
+        cache = self._cache_path(wav_path)
+        if cache.exists():
+            mel = np.load(cache)
+        else:
+            mel = self._compute_mel(wav_path)
+            np.save(cache, mel)
+        ids = np.asarray(train_text_to_sequence(text), dtype=np.int32)
+        return {"x": ids, "y": mel}
+
+    def mel_length(self, idx: int) -> int:
+        """Mel frames from the RIFF header alone: a pure function of the wav
+        file, never of the cache, so every process schedules alike."""
+        return num_frames(self.mel_cfg, _wav_num_samples(self.items[idx][0]))
+
+    def text_length(self, idx: int) -> int:
+        """Token count, from the text alone."""
+        return len(train_text_to_sequence(self.items[idx][1]))
 
 
 class SyntheticDataset:

@@ -11,15 +11,32 @@ Reference quirks kept: downsampled masks are truncations of the previous
 mask, the up path re-expands masks by nearest repeat, and the transformer
 blocks add the raw 0/1 mask to their logits. Mel lengths are padded to a
 multiple of 2**downsamples, so skip joins always line up.
+
+`DecoderConfig.remat` checkpoints each ResNet and transformer block (the
+JAX package's `nn.remat`, `matcha_tpu/nn/decoder.py:195-206`): "full" keeps
+only each block's inputs and recomputes the rest in the backward; "dots"
+also keeps the outputs of matrix products (`aten.mm`, `addmm`, `bmm`,
+`baddbmm`), as `jax.checkpoint_policies.checkpoint_dots` does. A recompute
+reruns the block's attention forward, K1 included. The transformer blocks'
+dropout masks are drawn before the checkpoint and passed in, and a block
+runs on the parameter tensors of its first run (the bf16 view of
+mixed-precision training), so the recompute repeats the first run exactly.
 """
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from matcha_tpu_torch.nn.transformer import BasicTransformerBlock
 
@@ -34,6 +51,12 @@ class DecoderConfig:
     n_blocks: int = 1
     num_mid_blocks: int = 2
     num_heads: int = 4
+    # activation checkpointing of the U-Net blocks: None, "full" or "dots"
+    remat: Optional[str] = None
+
+    def __post_init__(self):
+        if self.remat not in (None, "full", "dots"):
+            raise ValueError(f"remat must be None, 'full' or 'dots', got {self.remat!r}")
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1000.0):
@@ -101,16 +124,46 @@ class Upsample1D(nn.Module):
         return self.conv(x)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(module: nn.Module, remat: str, *args):
+    """module(*args) under a non-reentrant activation checkpoint. The
+    recompute runs on the tensors `module` holds now, which are a view's
+    while `functional_call` has swapped them in."""
+    state = dict(module.named_parameters())
+    state.update(module.named_buffers())
+
+    def run(*a):
+        return functional_call(module, state, a)
+
+    kwargs = {}
+    if remat == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy)
+    # the blocks draw no random numbers inside (their dropout masks are
+    # arguments), so the default generators need no saving
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
 def _transformers(cfg: DecoderConfig, dim: int) -> nn.ModuleList:
     return nn.ModuleList([
         BasicTransformerBlock(dim, cfg.num_heads, cfg.attention_head_dim, cfg.dropout)
         for _ in range(cfg.n_blocks)])
 
 
-def _run_transformers(blocks, x, mask):
+def _run_transformers(blocks, x, mask, remat=None):
     h = x.transpose(1, 2)
     for blk in blocks:
-        h = blk(h, mask[:, 0, :])
+        if remat is None:
+            h = blk(h, mask[:, 0, :])
+        else:
+            h = _checkpointed(blk, remat, h, mask[:, 0, :], *blk.dropout_masks(h))
     return h.transpose(1, 2)
 
 
@@ -160,10 +213,15 @@ class Decoder(nn.Module):
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, self.cfg.in_channels).to(x.dtype))
         x = torch.cat([x, mu], dim=1)
 
+        remat = self.cfg.remat if torch.is_grad_enabled() else None
+
+        def resnet(block, h, m):
+            return block(h, m, t_emb) if remat is None else _checkpointed(block, remat, h, m, t_emb)
+
         hiddens, masks = [], [mask]
         for i, (res, blocks, down) in enumerate(self.Downsampling_Blocks):
             m = masks[-1]
-            x = _run_transformers(blocks, res(x, m, t_emb), m)
+            x = _run_transformers(blocks, resnet(res, x, m), m, remat)
             hiddens.append(x)
             x = down(x * m)
             masks.append(m[:, :, : x.shape[-1]])  # truncation (identity on the last level)
@@ -171,7 +229,7 @@ class Decoder(nn.Module):
 
         m = masks[-1]
         for res, blocks in self.Mid_Blocks:
-            x = _run_transformers(blocks, res(x, m, t_emb), m)
+            x = _run_transformers(blocks, resnet(res, x, m), m, remat)
 
         for res, blocks, up in self.Upsampling_Blocks:
             m = masks.pop()
@@ -179,7 +237,8 @@ class Decoder(nn.Module):
             if x.shape[-1] != hidden.shape[-1]:
                 raise ValueError("skip-join length mismatch: pad the mel length with "
                                  "fix_len_compatibility")
-            x = _run_transformers(blocks, res(torch.cat([x, hidden], dim=1), m, t_emb), m)
+            x = _run_transformers(blocks, resnet(res, torch.cat([x, hidden], dim=1), m), m,
+                                  remat)
             x = up(x * m)
             if x.shape[-1] != m.shape[-1]:  # nearest re-expansion after an upsample
                 m = m.repeat_interleave(x.shape[-1] // m.shape[-1], dim=-1)

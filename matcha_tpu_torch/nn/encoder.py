@@ -10,7 +10,8 @@ Dropout sits where the JAX package puts it (`matcha_tpu/nn/encoder.py`): after
 each prenet layer (0.1, fixed), on the attention probabilities, after both
 ConvFFN convolutions and on both residual branches (`p_dropout`), and after
 both duration-predictor blocks (`dp_p_dropout`). It is active in `train()`
-only; the prenet's residual projection starts at zero, as the reference's.
+only and draws from the generator `nn.dropout.dropout_generator` sets; the
+prenet's residual projection starts at zero, as the reference's.
 """
 
 import math
@@ -20,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from matcha_tpu_torch.nn.dropout import Dropout
 from matcha_tpu_torch.nn.rope import apply_rope
 from matcha_tpu_torch.ops.masks import sequence_mask
 
@@ -57,7 +59,7 @@ class ConvReluNorm(nn.Module):
              for _ in range(n_layers)])
         self.normalizations = nn.ModuleList(
             [nn.LayerNorm(channels, eps=1e-5) for _ in range(n_layers)])
-        self.dropout = nn.Dropout(self.dropout_rate)
+        self.dropout = Dropout(self.dropout_rate)
         self.projection = nn.Conv1d(channels, channels, 1)
         nn.init.zeros_(self.projection.weight)
         nn.init.zeros_(self.projection.bias)
@@ -78,7 +80,7 @@ class DurationPredictor(nn.Module):
         self.norm_layer_1 = nn.LayerNorm(filter_channels, eps=1e-5)
         self.conv_layer_2 = nn.Conv1d(filter_channels, filter_channels, kernel_size, padding=pad)
         self.norm_layer_2 = nn.LayerNorm(filter_channels, eps=1e-5)
-        self.dropout = nn.Dropout(p_dropout)
+        self.dropout = Dropout(p_dropout)
         self.output_projection = nn.Conv1d(filter_channels, 1, 1)
 
     def forward(self, x, mask):
@@ -93,7 +95,7 @@ class RoPEMultiHeadAttention(nn.Module):
     def __init__(self, channels: int, n_heads: int, p_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
-        self.dropout = nn.Dropout(p_dropout)
+        self.dropout = Dropout(p_dropout)
         self.head_dim = channels // n_heads
         self.query_conv = nn.Conv1d(channels, channels, 1)
         self.key_conv = nn.Conv1d(channels, channels, 1)
@@ -124,8 +126,8 @@ class ConvFFN(nn.Module):
         # the reference's Sequential slots: conv, ReLU, Dropout, conv
         self.conv_net = nn.Sequential(
             nn.Conv1d(channels, filter_channels, kernel_size, padding=pad), nn.ReLU(),
-            nn.Dropout(p_dropout), nn.Conv1d(filter_channels, channels, kernel_size, padding=pad))
-        self.dropout = nn.Dropout(p_dropout)
+            Dropout(p_dropout), nn.Conv1d(filter_channels, channels, kernel_size, padding=pad))
+        self.dropout = Dropout(p_dropout)
 
     def forward(self, x, mask):
         return self.dropout(self.conv_net(x * mask)) * mask
@@ -142,7 +144,7 @@ class TransformerEncoder(nn.Module):
         self.ffn_layers = nn.ModuleList(
             [ConvFFN(ch, cfg.filter_channels, cfg.kernel_size, p) for _ in range(n)])
         self.norm_layers_2 = nn.ModuleList([nn.LayerNorm(ch, eps=1e-5) for _ in range(n)])
-        self.dropout = nn.Dropout(p)
+        self.dropout = Dropout(p)
 
     def forward(self, x, mask):
         attn_mask = mask.unsqueeze(2) * mask.unsqueeze(-1)  # (B, 1, T, T)

@@ -73,14 +73,10 @@ from matcha_tpu_torch.ops.attention import attention
 from matcha_tpu_torch.ops.masks import fix_len_compatibility
 from matcha_tpu_torch.ops.mrf import mrf_step
 from matcha_tpu_torch.text import simple_text_to_sequence
+from matcha_tpu_torch.utils.profiling import rtf
 
 # the kernel wrappers whose launches a graph records at capture
 COUNTED = {"attention_fwd": attention, "mrf_step": mrf_step}
-
-
-def rtf(wall_seconds: float, mel_frames: int, hop: int = 256, sr: int = 22050) -> float:
-    """Real-time factor: wall time over the duration of the audio produced."""
-    return wall_seconds * sr / (mel_frames * hop)
 
 
 def pow2(n: int) -> int:

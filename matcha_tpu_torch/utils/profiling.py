@@ -1,0 +1,94 @@
+"""Profiling and timing: torch.profiler traces, a step timer that waits for
+the device, and the real-time factor.
+
+The port of `matcha_tpu/utils/profiling.py`. A trace is a Chrome trace
+(`trace_<pid>_<ms>.json`, open in Perfetto or chrome://tracing) of the host
+and, on a CUDA device, of every kernel the card ran, the kernels inside
+CUDA graph replays included.
+"""
+
+import contextlib
+import os
+import time
+from pathlib import Path
+
+import torch
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def synchronize(tree):
+    """Wait until the device work that produces the tensors of `tree` is done."""
+    for dev in {t.device for t in _leaves(tree) if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+def start_trace(device=None) -> torch.profiler.profile:
+    """Start a torch.profiler trace of the host, and of the card when `device`
+    is a CUDA device."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_trace(prof: torch.profiler.profile, log_dir, device=None) -> Path:
+    """Wait for the device, stop `prof` and write its Chrome trace into `log_dir`."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"
+    prof.export_chrome_trace(str(path))
+    return path
+
+
+@contextlib.contextmanager
+def trace(log_dir, device=None):
+    """Trace the block into a Chrome trace in `log_dir`:
+
+        with trace("/tmp/trace", device="cuda"):
+            run_step(...)
+    """
+    prof = start_trace(device)
+    try:
+        yield prof
+    finally:
+        stop_trace(prof, log_dir, device)
+
+
+class StepTimer:
+    """Wall-clock timer of steps that waits for the device's work: put the
+    step's output tensors in `out["result"]`."""
+
+    def __init__(self):
+        self.times = []
+
+    @contextlib.contextmanager
+    def measure(self):
+        t0 = time.perf_counter()
+        out = {}
+        yield out
+        if "result" in out:
+            synchronize(out["result"])
+        self.times.append(time.perf_counter() - t0)
+
+    @property
+    def median(self):
+        s = sorted(self.times)
+        return s[len(s) // 2] if s else float("nan")
+
+
+def rtf(wall_seconds: float, mel_frames: int, hop: int = 256, sr: int = 22050) -> float:
+    """Real-time factor: wall time over the duration of the audio produced."""
+    return wall_seconds * sr / (mel_frames * hop)

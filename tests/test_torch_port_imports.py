@@ -21,6 +21,9 @@ for name in names:
 leaked = sorted(n for n in sys.modules
                 if n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
                 or n == "matcha_tpu" or n.startswith("matcha_tpu."))
+new = {"matcha_tpu_torch.nn.dropout", "matcha_tpu_torch.data.ljspeech",
+       "matcha_tpu_torch.utils.profiling", "matcha_tpu_torch.utils.plotting"}
+assert new <= set(names), new - set(names)
 print("MODULES", len(names))
 print("LEAKED", leaked)
 """
@@ -52,7 +55,9 @@ for call in (lambda: resolve_device(None),
                                ServeConfig(vocoder="hifigan"),
                                Generator(HiFiGANConfig(num_mels=8)).state_dict(),
                                HiFiGANConfig(num_mels=8)),
-             lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir"))):
+             lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir")),
+             lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir",
+                                                        steps_per_dispatch=4))):
     try:
         call()
     except RuntimeError as e:

@@ -10,6 +10,8 @@
 #   mas         tools/time_mas.py, whole maximum_path calls at the training
 #               path's shapes;
 #   serve       tools/time_serve.py, the serving engine's two request kinds;
+#   train       tools/time_train.py, training micro-steps (eager, and graph
+#               replays where the tree has them);
 #   chip_smoke  each tree's own chip_smoke.py.
 # Each step runs in the order parent, change, change, parent; the timing tools
 # run this checkout's timing code on each tree's matcha_tpu_torch. Results and
@@ -30,6 +32,8 @@ for step in $steps; do
              > "$out/mas_$run.log" 2>&1 ;;
       serve) python3 tools/time_serve.py --tree "$tree" --out "$out/serve_$run.json" \
                > "$out/serve_$run.log" 2>&1 ;;
+      train) python3 tools/time_train.py --tree "$tree" --out "$out/train_$run.json" \
+               > "$out/train_$run.log" 2>&1 ;;
       chip_smoke) (cd "$tree" && python3 chip_smoke.py --out "$out/cs_$run.json" \
                     > "$out/cs_$run.log" 2>&1) ;;
       *) echo "unknown step $step"; exit 2 ;;

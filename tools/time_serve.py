@@ -13,8 +13,8 @@ output), warms it for the path's two text buckets, then:
   per-request seeds;
 - one request of each kind under torch.profiler (`chip_smoke.profile_request`:
   wall, device busy, idle share, kernels by group), and the CUDA runtime
-  calls the host issued during it (`host_calls`: kernel and graph launches,
-  copies, by name).
+  calls the host issued during it (`chip_smoke.host_calls`: kernel and graph
+  launches, copies, by name).
 `--tree` takes `matcha_tpu_torch` from another checkout (for example an
 unpacked parent commit) while the timing code stays this checkout's: two
 trees timed in one call, in turns (`tools/ab_turns.sh`), compare on one card.
@@ -32,24 +32,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# the CUDA API calls that put work on the card
-HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
-              "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
-
-
-def host_calls(call):
-    """{CUDA runtime call: count} the host made during `call`, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name in HOST_CALLS:
-            out[e.name] = out.get(e.name, 0) + 1
-    return out
 
 
 def walls(call, reps):
@@ -114,7 +96,7 @@ def main(argv=None) -> int:
     for name, call in requests.items():
         call()
         res[name] = {"wall_ms": walls(call, args.reps), "profile": cs.profile_request(call),
-                     "host_calls": host_calls(call)}
+                     "host_calls": cs.host_calls(call)}
         p, w = res[name]["profile"], res[name]["wall_ms"]
         print(f"{name}: wall median {w['median']:.2f} ms, max {w['max']:.2f}, mean "
               f"{w['mean']:.2f} over {args.reps}; profiled wall {p['wall_ms']:.2f} ms, busy "
