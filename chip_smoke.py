@@ -51,14 +51,30 @@ PyTorch built for CUDA. In order:
    accounting and by the profiler's kernel names; micro-step walls (median
    of 20 replays, 10 eager steps), busy, idle, host calls a dispatch,
    capture seconds and the graph pool's bytes;
-5. holds the port on the card against itself on the CPU in float32 with TF32
+5. the vocoder training path at full width (`HiFiGANConfig()`, v1's
+   discriminators, `VocoderTrainConfig()`, batch 16 of 8192 samples, 64
+   synthetic items: 4 GAN steps an epoch): `VocoderTrainer.fit` two epochs
+   at K = 4 with 8 validation items, resumed for a third at K = 1, every GAN
+   step a CUDA graph replay (none eager, no K2 in training), all losses
+   finite; an epoch at K = 1 against the K = 4 run's first (per-step logs
+   within rtol 1e-4); the same 4 steps eagerly on the card, twice, against
+   the replays (metrics, parameters); one GAN step at batch 2 card vs CPU;
+   GAN-step walls replayed and eager, busy, idle, host calls, capture
+   seconds and pool bytes; then the trained generator folded by
+   `load_generator_for_inference` and served by an f32 and a bf16
+   `TTSEngine(vocoder="hifigan")`, one low-latency request each through its
+   graph with the counts set to 0 just before and read just after (K2 36
+   and K1 60 a replay, none eager; K2 36 recorded at capture; the profiler
+   agrees), each waveform against the training-form generator on the
+   engine's own mel within K2's f32 and bf16 bars;
+6. holds the port on the card against itself on the CPU in float32 with TF32
    off (one served text; one training forward and backward, losses and
    gradients) and against the frozen reference outputs of
    `tests/fixtures/golden_e2e*.npz`;
-6. at every shape each path gave each kernel (the Griffin-Lim engine's K1 in
-   f32 included), holds the kernel against its plain version and times the
-   kernel, its plain version and the matching
-   PyTorch call, beside the least time the card could take; times K1 and K4
+7. at every shape each path gave each kernel (the Griffin-Lim engine's K1 in
+   f32 and the trained vocoder's K1 and K2 in both dtypes included), holds
+   the kernel against its plain version and times the kernel, its plain
+   version and the matching PyTorch call, beside the least time the card could take; times K1 and K4
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
    T=448 in both dtypes; times K2 at every (C, T, k, d) of a 1024-frame
    request and of a batch of 4 at 512, in both dtypes, beside its plain
@@ -797,7 +813,10 @@ KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
 
 def profile_request(call):
     """Device time of one request by kernel group, and the card's idle share
-    of the request's wall time, from torch.profiler's CUDA kernel events."""
+    of the request's wall time, from torch.profiler's CUDA kernel events.
+    Busy (`device_ms`) is the union of the kernels' time spans, the time the
+    card ran at least one kernel; `kernel_ms_sum` adds up their durations,
+    which is more where kernels overlap."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -817,11 +836,15 @@ def profile_request(call):
         groups[group] = groups.get(group, 0.0) + ms
         counts[group] = counts.get(group, 0) + 1
         names[e.name[:90]] = names.get(e.name[:90], 0.0) + ms
-    busy = sum(groups.values())
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy = busy_us / 1e3
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-            "kernel_launches": len(kernels), "by_group_ms": groups,
-            "launches_by_group": counts, "top_kernels_ms": dict(top)}
+            "kernel_ms_sum": sum(groups.values()), "kernel_launches": len(kernels),
+            "by_group_ms": groups, "launches_by_group": counts, "top_kernels_ms": dict(top)}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -925,10 +948,11 @@ def launch_counters():
             "attention_bwd": attention_backward}
 
 
-def read_metrics(ckpt_dir):
+def read_metrics(ckpt_dir, keys=("train/loss", "val/loss")):
+    """(train rows, validation rows) of a run's metrics.jsonl, told apart by `keys`."""
     rows = [json.loads(line) for line in
             (Path(ckpt_dir) / "logs" / "metrics.jsonl").read_text().splitlines()]
-    return ([r for r in rows if "train/loss" in r], [r for r in rows if "val/loss" in r])
+    return tuple([r for r in rows if key in r] for key in keys)
 
 
 def per_micro_step(mcfg, remat=None):
@@ -1681,6 +1705,305 @@ def train_card_vs_cpu(dev, mcfg, seed):
     return res
 
 
+# ---------------------------------------------------------------- vocoder training path
+VOC_ITEMS, VOC_VAL_ITEMS = 64, 8  # batch 16: 4 GAN steps and 1 validation batch an epoch
+VOC_BUDGET = 512  # the trained generator serves one low-latency request of this budget
+VOC_KEYS = ("train/g_loss", "val/mel_l1")  # the metric rows of a vocoder run
+
+
+def vocoder_trainer(dev, ckpt_dir, k, seed, hcfg, disc_kw, dcfg):
+    """A VocoderTrainer at `hcfg`, the discriminators of `disc_kw` (v1's when
+    empty) and `dcfg`, initialised from `seed`, logging every step."""
+    from matcha_tpu_torch.train.vocoder import Discriminators, VocoderTrainConfig, VocoderTrainer
+
+    return VocoderTrainer(hcfg, VocoderTrainConfig(ckpt_dir=str(ckpt_dir), log_every=1,
+                                                   seed=seed, steps_per_dispatch=k), dcfg,
+                          disc=Discriminators(**disc_kw) if disc_kw else None, device=dev)
+
+
+def vocoder_log_rows(rows):
+    """(steps, 5) metrics of logged train rows, in `METRICS` order."""
+    from matcha_tpu_torch.train.vocoder import METRICS
+
+    return torch.tensor([[r[f"train/{m}"] for m in METRICS] for r in rows], dtype=torch.float64)
+
+
+def vocoder_fit(trainer, train_ds, val_ds, epochs):
+    """`fit` to `epochs` with the K2 counter watched (the training form runs no
+    K2) and the GAN steps counted by how they ran: every step a graph replay,
+    none eager (a capture's warm-up run is not a step)."""
+    from matcha_tpu_torch.ops.mrf import mrf_step
+
+    latest = trainer.checkpoints.latest()
+    start = latest["step"] if latest else 0
+    before_k2, t0 = mrf_step.launches, time.perf_counter()
+    step = trainer.fit(train_ds, val_ds, max_epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replayed = sum(k * n for k, n in trainer.replays.items())
+    launches = [g.launches for g in trainer.graphs.values()]
+    if trainer.eager_steps or replayed != step - start or mrf_step.launches != before_k2 \
+            or any(any(c.values()) for c in launches):
+        raise AssertionError(f"fit from step {start} to {step}: {replayed} steps replayed, "
+                             f"{trainer.eager_steps} eager, K2 {mrf_step.launches - before_k2}, "
+                             f"kernel launches in the graphs {launches}")
+    train_rows, val_rows = read_metrics(trainer.train_cfg.ckpt_dir, VOC_KEYS)
+    values = [r[k] for r in train_rows + val_rows for k in r if k.startswith(("train/", "val/"))]
+    if not train_rows or not val_rows or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"fit to step {step}: missing or non-finite metrics")
+    return {"step": step, "wall_s": wall, "eager_steps": trainer.eager_steps,
+            **graph_summary(trainer),
+            "checkpoints": [e["step"] for e in trainer.checkpoints.entries],
+            "train": train_rows, "val": val_rows}
+
+
+def vocoder_fit_runs(dev, seed, root, hcfg, disc_kw, dcfg, train_ds, val_ds):
+    """Two epochs of `fit` at K = 4 with validation, resumed for a third at
+    K = 1; apart, one epoch at K = 1 from the same start, whose logs must
+    follow the K = 4 run's first epoch (TOL_FIT). Returns the runs and the
+    K = 1 run's parameters after its epoch."""
+    a = vocoder_trainer(dev, root / "voc", 4, seed, hcfg, disc_kw, dcfg)
+    runs = {"k4": vocoder_fit(a, train_ds, val_ds, 2)}
+    del a
+    b = vocoder_trainer(dev, root / "voc", 1, seed, hcfg, disc_kw, dcfg)
+    runs["resumed_k1"] = vocoder_fit(b, train_ds, val_ds, 3)
+    del b
+    c = vocoder_trainer(dev, root / "voc_k1", 1, seed, hcfg, disc_kw, dcfg)
+    runs["k1"] = vocoder_fit(c, train_ds, val_ds, 1)
+    params = [p.detach().clone() for p in c.opt_g.params + c.opt_d.params]
+    del c
+    steps = len(runs["k1"]["train"])
+    if (runs["k4"]["step"], runs["resumed_k1"]["step"], runs["k4"]["replays"],
+            runs["resumed_k1"]["replays"]) != (2 * steps, 3 * steps, {"4": steps // 2},
+                                              {"1": steps}) or steps != 4:
+        raise AssertionError(f"steps or replays of the runs: {runs}")
+    k4 = vocoder_log_rows(runs["k4"]["train"][:steps])
+    k1 = vocoder_log_rows(runs["k1"]["train"])
+    rtol, atol = TOL_FIT
+    gap = (k4 - k1).abs()
+    if bool((gap > atol + rtol * k1.abs()).any()):
+        raise AssertionError(f"fit K=4 vs K=1 logs: {k4.tolist()} against {k1.tolist()}")
+    runs["k4_vs_k1"] = {"steps": steps, "max_abs_gap": float(gap.max()), "bar": TOL_FIT}
+    for name, r in runs.items():
+        if "train" in r:
+            log(f"vocoder fit {name}: step {r['step']} in {r['wall_s']:.1f} s, replays "
+                f"{r['replays']}, eager steps {r['eager_steps']}, graphs "
+                f"{[(g['key'], round(g['capture_s'], 2)) for g in r['graphs']]}, pool "
+                f"{r['pool_bytes']} bytes, checkpoints {r['checkpoints']}, g_loss "
+                f"{[round(t['train/g_loss'], 3) for t in r['train']]}, val mel_l1 "
+                f"{[round(v['val/mel_l1'], 4) for v in r['val']]}")
+    log(f"vocoder fit K=4 vs K=1, epoch 0: {steps} steps within rtol {rtol}, atol {atol} "
+        f"(largest gap {runs['k4_vs_k1']['max_abs_gap']:.3g})")
+    return runs, params
+
+
+def vocoder_graphs_vs_eager(dev, seed, root, hcfg, disc_kw, dcfg, train_ds, runs, params):
+    """The first epoch's 4 GAN steps eagerly on the card, twice, from the fit's
+    start: against the K = 1 and K = 4 replays' logged metrics (TOL_STEP fp32)
+    and the K = 1 run's parameters after them (`param_gap`); the second eager
+    run against the first is the card's own spread."""
+    from matcha_tpu_torch.data.audio_dataset import wav_batch_iterator
+
+    batches = list(wav_batch_iterator(train_ds, dcfg, epoch=0))
+    eager = []
+    for name in ("eager", "again"):
+        t = vocoder_trainer(dev, root / f"voc_{name}", 1, seed, hcfg, disc_kw, dcfg)
+        t.init_optimizers(len(batches))
+        out = torch.cat([t.dispatch([y], eager=True).clone() for y in batches])
+        eager.append((out, [p.detach().clone() for p in t.opt_g.params + t.opt_d.params],
+                      t.train_cfg.lr))
+        del t
+    (want, want_p, lr), (again, again_p, _) = eager
+    res = {"k1_replays": metric_gap(vocoder_log_rows(runs["k1"]["train"]), want,
+                                    "vocoder K=1 replays vs eager"),
+           "k4_replay": metric_gap(vocoder_log_rows(runs["k4"]["train"][:len(batches)]), want,
+                                   "vocoder K=4 replay vs eager"),
+           "params": param_gap(params, want_p, lr),
+           "eager_again": {"metrics": metric_gap(again, want, "vocoder eager vs eager"),
+                           "params": param_gap(again_p, want_p, lr)}}
+    log(f"vocoder GAN steps, graphs vs eager on the card ({len(batches)} steps from the same "
+        f"start): K=1 replays {res['k1_replays']}, K=4 replay {res['k4_replay']}, parameters "
+        f"{res['params']} (bars: rtol, atol {TOL_STEP['fp32']}; < {3 * lr}, < 2 %); a second "
+        f"eager run vs the first: {res['eager_again']}")
+    return res
+
+
+def vocoder_step_times(dev, seed, root, hcfg, disc_kw, dcfg, train_ds, reps=10):
+    """A GAN step at batch 16: median walls of `reps` 1-step replays and of
+    `reps // 2` eager steps (each ended by a synchronise), K = 4 replays a
+    step; two replays profiled (busy, idle, kernels); the host's CUDA calls a
+    replay; capture seconds and the pool's bytes."""
+    from matcha_tpu_torch.data.audio_dataset import wav_batch_iterator
+
+    y = next(wav_batch_iterator(train_ds, dcfg, epoch=0))
+    trainer = vocoder_trainer(dev, root / "voc_timing", 1, seed, hcfg, disc_kw, dcfg)
+    trainer.init_optimizers(4)
+
+    def replay():
+        trainer.dispatch([y])
+
+    def eager():
+        trainer.dispatch([y], eager=True)
+
+    def replay_k4():
+        trainer.dispatch([y] * 4)
+
+    for call in (replay, replay_k4, eager):  # capture both graphs
+        call()
+    graph_ms, eager_ms = synced_walls(replay, reps), synced_walls(eager, reps // 2)
+    k4_ms = [t / 4 for t in synced_walls(replay_k4, 3)]
+    prof, prof_eager = per_step_profile(replay), per_step_profile(eager)
+    res = {"graph_ms": graph_ms, "graph_ms_median": float(np.median(graph_ms)),
+           "eager_ms": eager_ms, "eager_ms_median": float(np.median(eager_ms)),
+           "k4_ms_per_step": k4_ms, "profile": prof, "profile_eager": prof_eager,
+           "host_calls": host_calls(replay), "host_calls_eager": host_calls(eager),
+           "host_calls_k4": host_calls(replay_k4), **graph_summary(trainer)}
+    busy = prof.get("busy_ms_per_step", "not measured")
+    if isinstance(busy, float):
+        res["idle_share_unprofiled"] = 1.0 - busy / res["graph_ms_median"]
+    log(f"vocoder GAN step at batch 16 x {dcfg.segment_size}: graph replay median "
+        f"{res['graph_ms_median']:.2f} ms over {reps} (eager {res['eager_ms_median']:.2f} over "
+        f"{reps // 2}); K=4 per step {[round(t, 2) for t in k4_ms]}; a replayed step busy "
+        f"{busy if isinstance(busy, str) else round(busy, 3)} ms (kernel durations summed "
+        f"{prof.get('kernel_ms_sum')} over 2), profiled wall {prof.get('wall_ms_per_step')}, "
+        f"idle unprofiled {res.get('idle_share_unprofiled')}, {prof.get('kernels_per_step')} "
+        f"kernels, by group {prof.get('by_group_ms')}; an eager step busy "
+        f"{prof_eager.get('busy_ms_per_step')} (summed {prof_eager.get('kernel_ms_sum')} over "
+        f"2), profiled wall {prof_eager.get('wall_ms_per_step')}, "
+        f"{prof_eager.get('kernels_per_step')} kernels; host calls a replay "
+        f"{res['host_calls']}, K=4 {res['host_calls_k4']}, eager "
+        f"{sum(res['host_calls_eager'].values())}; graphs {res['graphs']}, pool "
+        f"{res['pool_bytes']} bytes")
+    del trainer
+    return res
+
+
+def vocoder_card_vs_cpu(dev, seed, root, hcfg, disc_kw, segment):
+    """One GAN step at batch 2 from the same start on the card (a graph
+    replay) and on the CPU: metrics within TOL_STEP fp32, parameters within
+    the drift bars (`param_gap`)."""
+    from matcha_tpu_torch.data.audio_dataset import AudioDataConfig, SyntheticWavDataset
+
+    dcfg = AudioDataConfig(batch_size=2, segment_size=segment)
+    ds = SyntheticWavDataset(n_items=2, segment_size=segment, seed=seed)
+    y = np.stack([ds.get_segment(i, np.random.default_rng(0)) for i in range(2)])
+    outs = {}
+    for where in (torch.device("cpu"), dev):
+        t = vocoder_trainer(where, root / f"voc_{where.type}", 1, seed, hcfg, disc_kw, dcfg)
+        t.init_optimizers(1)
+        t0 = time.perf_counter()
+        out = t.dispatch([y]).cpu()
+        outs[where.type] = (out, [p.detach().cpu() for p in t.opt_g.params + t.opt_d.params],
+                            time.perf_counter() - t0, t.train_cfg.lr)
+        del t
+    (cpu, cpu_p, cpu_s, lr), (card, card_p, card_s, _) = outs["cpu"], outs[dev.type]
+    res = {"metrics": metric_gap(card, cpu, "vocoder GAN step card vs CPU"),
+           "params": param_gap(card_p, cpu_p, lr), "cpu_s": cpu_s, "card_s": card_s,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32}}
+    log(f"vocoder GAN step card vs CPU (batch 2, float32, TF32 off): metrics {res['metrics']}, "
+        f"parameters {res['params']} (bars: rtol, atol {TOL_STEP['fp32']}; < {3 * lr}, < 2 %)")
+    return res
+
+
+def vocoder_serve_loop(dev, mcfg, hcfg, seed, ckpt_dir):
+    """The trained generator served: `load_generator_for_inference` -> the
+    serving `Generator` inside a `TTSEngine(vocoder="hifigan")` in f32 and in
+    bf16, one low-latency request each through its CUDA graph (captured
+    first, then the counts set to 0 and read after both requests: K2 36 and
+    K1 60 a replay by the graph accounting, none eager; each graph recorded
+    K2 36 by the wrappers at capture; one replay of each profiled, the
+    profiler's K2 and K1 equal to the accounting). Each served waveform is
+    held against the training-form generator (plain convs, f32) on the
+    engine's own mel: K2's f32 bar, and its bf16 bar for the bf16 engine."""
+    from matcha_tpu_torch.models.hifigan import Generator
+    from matcha_tpu_torch.serve import ServeConfig, TTSEngine
+    from matcha_tpu_torch.train.checkpoints import CheckpointStore
+    from matcha_tpu_torch.train.vocoder import load_generator_for_inference
+
+    folded = load_generator_for_inference(ckpt_dir)
+    train_form = Generator(hcfg, weight_norm=True)
+    train_form.load_state_dict(CheckpointStore(ckpt_dir).restore_params("best", "cpu")["gen"])
+    train_form.to(dev)
+    msd, _ = model_weights(mcfg, hcfg, seed)
+    text, per_call = TEXTS[0], len(mrf_shapes(hcfg, 1))
+    engines = {}
+    for dtype, bf16 in (("float32", False), ("bfloat16", True)):
+        scfg = ServeConfig(bf16=bf16, vocoder="hifigan")
+        engine = TTSEngine(msd, mcfg, scfg, folded, hcfg, device=dev)
+        engine.synthesise_lowlatency(text, seed=7, budget=VOC_BUDGET)  # capture
+        (stage,) = engine._stages.values()
+        if stage.launches["mrf_step"] != per_call:
+            raise AssertionError(f"{dtype}: the graph recorded {stage.launches} at capture")
+        engines[dtype] = engine
+    for engine in engines.values():
+        reset_serving_counts(engine)
+    served = {d: e.synthesise_lowlatency(text, seed=7, budget=VOC_BUDGET)
+              for d, e in engines.items()}
+    counts = {d: dict(e.launches) for d, e in engines.items()}
+    eager = wrapper_counts()
+    want = {"attention_fwd": scfg.n_timesteps
+            * sum(n for n, _ in attention_shapes(mcfg.decoder, 1)),
+            "mrf_step": per_call}
+    if any(c != want for c in counts.values()) or any(eager.values()):
+        raise AssertionError(f"served launches {counts} replayed and {eager} eager, expected "
+                             f"{want} a request and none eager")
+    res = {"launches": {n: sum(c[n] for c in counts.values()) for n in want},
+           "launches_per_request": want, "requests": {}}
+    for dtype, engine in engines.items():
+        wav, info = served[dtype]
+        x, xl = (a.to(dev) for a in engine._tokenize([text]))
+        (z,) = engine._draws(1, VOC_BUDGET, None, [7])
+        with torch.no_grad():
+            mel = engine.model.decode_fixed(*engine._encode(x, xl), VOC_BUDGET,
+                                            engine.cfg.n_timesteps, engine.cfg.temperature,
+                                            z=z)["mel"]
+            ref = train_form(mel.float())[0, : len(wav)].clamp(-1.0, 1.0)
+        atol, rtol = TOL_MRF_F32 if dtype == "float32" else TOL["bfloat16"]
+        err = max_err_within(torch.from_numpy(wav).to(dev), ref, atol, rtol,
+                             f"served {dtype} waveform vs the training form")
+        prof = replay_profile(
+            engine, lambda e=engine: e.synthesise_lowlatency(text, seed=7, budget=VOC_BUDGET),
+            f"trained vocoder, low-latency request ({dtype})")
+        res["requests"][dtype] = {"budget": info["budget"], "mel_lengths": info["mel_lengths"],
+                                  "wall_s": info["wall_s"], "max_abs_err": err,
+                                  "bar": {"atol": atol, "rtol": rtol}, "profile": prof}
+        log(f"trained vocoder served ({dtype} engine, {info['mel_lengths']} frames at budget "
+            f"{VOC_BUDGET}): waveform vs the training form {err:.3g} (atol {atol}, rtol {rtol})")
+    log(f"trained vocoder serving launches {counts} by graph replay (expected {want} a request), "
+        f"eager {eager}")
+    return res
+
+
+def vocoder_train_path(dev, mcfg, seed, root, hcfg, disc_kw=None, segment=8192):
+    """HiFi-GAN training at full width (`HiFiGANConfig()`, v1's discriminators,
+    `VocoderTrainConfig()`, batch 16 of 8192 samples, 64 synthetic items: 4
+    GAN steps an epoch), every step a CUDA graph replay, and the trained
+    generator served through K2."""
+    from matcha_tpu_torch.data.audio_dataset import AudioDataConfig, SyntheticWavDataset
+
+    disc_kw = disc_kw or {}
+    dcfg = AudioDataConfig(batch_size=16, segment_size=segment)
+    train_ds = SyntheticWavDataset(n_items=VOC_ITEMS, segment_size=segment)
+    val_ds = SyntheticWavDataset(n_items=VOC_VAL_ITEMS, segment_size=segment, seed=1)
+    args = (hcfg, disc_kw, dcfg)
+    t0 = time.perf_counter()
+    runs, params = vocoder_fit_runs(dev, seed, root, *args, train_ds, val_ds)
+    res = {"runs": runs,
+           "graphs_vs_eager": vocoder_graphs_vs_eager(dev, seed, root, *args, train_ds, runs,
+                                                      params)}
+    del params
+    res["step_times"] = vocoder_step_times(dev, seed, root, *args, train_ds)
+    res["card_vs_cpu"] = vocoder_card_vs_cpu(dev, seed, root, hcfg, disc_kw, segment)
+    res["serve"] = vocoder_serve_loop(dev, mcfg, hcfg, seed, root / "voc")
+    res["launches"] = res["serve"]["launches"]
+    res["requests"] = {d: [("lowlatency", 1, VOC_BUDGET, r["mel_lengths"])]
+                       for d, r in res["serve"]["requests"].items()}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"vocoder training path: {res['phase_s']:.1f} s")
+    return res
+
+
 # ---------------------------------------------------------------- phase 5
 def main_path_requests(engine):
     """(name, batch, budget, mel lengths) of the two decodes the main path ran."""
@@ -1888,6 +2211,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         training = train_main_path(dev, mcfg, args.seed, Path(tmp))
         train_graphs = train_graph_checks(dev, mcfg, args.seed, Path(tmp))
+        vocoder = vocoder_train_path(dev, mcfg, args.seed, Path(tmp), hcfg)
         e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
                "golden": golden_on_card(dev),
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
@@ -1900,6 +2224,10 @@ def main(argv=None) -> int:
         for name, rs in time_training_kernels(dev, mcfg, args.seed, training_batches(mcfg),
                                               step_ns).items():
             rows.setdefault(name, []).extend(rs)
+        for dtype, requests_voc in vocoder["requests"].items():
+            for name, rs in time_kernels(dev, mcfg, hcfg, args.seed, requests_voc, "vocoder",
+                                         getattr(torch, dtype)).items():
+                rows[name].extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
@@ -1912,9 +2240,15 @@ def main(argv=None) -> int:
                   f"{training['val_batches_an_epoch']} validation batch an epoch: fp32 1 epoch, "
                   f"bf16 1 epoch, bf16 resumed for a second at steps_per_dispatch 2 (validation "
                   f"in fp32); micro-steps as CUDA graph replays, validation eager")
+    vocoder_work = (f"VocoderTrainer.fit at full width (batch 16 x 8192 samples, {VOC_ITEMS} "
+                    f"synthetic items: 4 GAN steps an epoch) on CUDA graphs, no K2 in training; "
+                    f"the trained generator folded and served, one low-latency request at "
+                    f"budget {VOC_BUDGET} through an f32 and a bf16 HiFi-GAN engine's graphs")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
-                                    "train": training["launches"]},
-                       {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work})
+                                    "train": training["launches"],
+                                    "vocoder": vocoder["launches"]},
+                       {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work,
+                        "vocoder": vocoder_work})
     for k in line["kernels"]:
         if k["name"] == "mas":
             k["chain_step_ns"] = step_ns
@@ -1923,7 +2257,8 @@ def main(argv=None) -> int:
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
          "chain_step_ns": step_ns, "engine": engine, "engine_griffin_lim": engine_gl,
-         "training": training, "train_graphs": train_graphs, "e2e": e2e, "kernel_rows": rows,
+         "training": training, "train_graphs": train_graphs, "vocoder_training": vocoder,
+         "e2e": e2e, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))
     log(line)

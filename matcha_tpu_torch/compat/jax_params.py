@@ -10,11 +10,17 @@ Layout transforms (flax -> torch):
     Dense kernel (in, out)                 -> Linear weight (out, in)
     Dense kernel standing for a 1x1 conv   -> Conv1d weight (out, in, 1)
     Conv kernel (k, in, out)               -> Conv1d weight (out, in, k)
+    Conv kernel (k, 1, in, out)            -> Conv2d weight (out, in, k, 1)
     ConvTranspose kernel (k, out, in)      -> ConvTranspose1d weight (in, out, k)
+    WeightNorm scale '<path>/kernel/scale' -> `weight_g` (C, 1, 1), with the
+        kernel at <path> as `weight_v`; C is flax's feature axis, the
+        kernel's last: a conv's output channels, a transposed conv's input
+        channels, torch's dim 0 either way
 """
 
 import re
-from typing import Dict
+from collections.abc import Mapping
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -138,18 +144,60 @@ def matcha_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def hifigan_state_dict_from_jax(params, resblock: str = "1") -> Dict[str, torch.Tensor]:
-    """JAX Generator(weight_norm=False) params -> port `Generator` state dict.
+def _split_weight_norm(tree) -> Tuple[dict, Dict[tuple, np.ndarray]]:
+    """(the tree without its flax `WeightNorm_*` scopes, {path of the wrapped
+    conv: its kernel scale}); a scope's entry '<path>/kernel/scale' names a
+    conv relative to the scope's parent."""
+    scales = {}
 
+    def walk(node, prefix):
+        out = {}
+        for key, val in node.items():
+            if key.startswith("WeightNorm_"):
+                for name, scale in val.items():
+                    parts = tuple(name.split("/"))
+                    if parts[-2:] != ("kernel", "scale"):
+                        raise ValueError(f"unexpected WeightNorm entry: {name}")
+                    scales[prefix + parts[:-2]] = scale
+            elif isinstance(val, Mapping):
+                out[key] = walk(val, prefix + (key,))
+            else:
+                out[key] = val
+        return out
+
+    return walk(tree, ()), scales
+
+
+def hifigan_state_dict_from_jax(params, resblock: str = "1") -> Dict[str, torch.Tensor]:
+    """JAX Generator params -> port `Generator` state dict.
+
+    A `Generator(weight_norm=False)` tree gives `<name>.weight`; a
+    `Generator(weight_norm=True)` tree gives `<name>.weight_g` and
+    `<name>.weight_v`, the training form's keys (the serving form folds them).
     `resblock` is the config's ResBlock type: "1" pairs each dilated conv
     (WNConv_{2m} -> convs1.m) with a second conv (WNConv_{2m+1} -> convs2.m);
     "2" has one conv per dilation (WNConv_m -> convs.m).
     """
+    params, scales = _split_weight_norm(params)
     sd = {}
-    _put(sd, "conv_pre", _conv(params["conv_pre"]), params["conv_pre"])
+
+    def put(dst, *path):
+        node = params
+        for key in path:
+            node = node[key]
+        scale = scales.get(path)
+        if scale is None:
+            _put(sd, dst, _conv(node), node)
+            return
+        v = _conv(node)
+        sd[f"{dst}.weight_v"] = v
+        sd[f"{dst}.weight_g"] = _t(scale).reshape((v.shape[0],) + (1,) * (v.ndim - 1))
+        sd[f"{dst}.bias"] = _t(node["bias"])
+
+    put("conv_pre", "conv_pre")
     n_k = sum(1 for k in params if re.fullmatch(r"res_0_\d+", k))
     for i in range(_count(params, "up")):
-        _put(sd, f"ups.{i}", _conv(params[f"up_{i}"]), params[f"up_{i}"])
+        put(f"ups.{i}", f"up_{i}")
         for j in range(n_k):
             blk = params[f"res_{i}_{j}"]
             name = f"resblocks.{i * n_k + j}"
@@ -159,7 +207,24 @@ def hifigan_state_dict_from_jax(params, resblock: str = "1") -> Dict[str, torch.
             else:
                 pairs = [(m, f"{name}.convs.{m}") for m in range(_count(blk, "WNConv"))]
             for src, dst in pairs:
-                c = blk[f"WNConv_{src}"]["Conv_0"]
-                _put(sd, dst, _conv(c), c)
-    _put(sd, "conv_post", _conv(params["conv_post"]), params["conv_post"])
+                put(dst, f"res_{i}_{j}", f"WNConv_{src}", "Conv_0")
+    put("conv_post", "conv_post")
+    return sd
+
+
+def discriminators_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX `train.vocoder.Discriminators` params {"mpd": ..., "msd": ...} -> the
+    port's `Discriminators` state dict: period discriminator p{p} (by rising
+    period) -> mpd.discriminators.{i}, scale s{i} -> msd.discriminators.{i};
+    Conv_{j} -> convs.{j}, the last Conv -> conv_post."""
+    sd = {}
+    for group, layout in (("mpd", (3, 2, 0, 1)), ("msd", (2, 1, 0))):
+        tree = params[group]
+        for i, key in enumerate(sorted(tree, key=lambda k: int(k[1:]))):
+            d = tree[key]
+            n = _count(d, "Conv")
+            for j in range(n):
+                c = d[f"Conv_{j}"]
+                dst = f"{group}.discriminators.{i}." + (f"convs.{j}" if j < n - 1 else "conv_post")
+                _put(sd, dst, _t(np.asarray(c["kernel"]).transpose(layout)), c)
     return sd

@@ -44,6 +44,7 @@ validation batch i by (seed + 2, e, i): a run's trajectory depends neither
 on where it was resumed nor on K.
 """
 
+import functools
 import json
 import math
 import time
@@ -119,6 +120,26 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+@torch.no_grad()
+def adamw_(params, grads, mu, nu, neg_lr, bc1, bc2, betas, weight_decay) -> None:
+    """One AdamW update in place, as optax's adamw (eps 1e-8 outside the square
+    root, decay on the parameters before the update), from the negated
+    learning rate and the bias corrections 1 - b^count (0-d device tensors)."""
+    b1, b2 = betas
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, 1e-8)
+    update = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(update, denom)
+    torch._foreach_add_(update, params, alpha=weight_decay)
+    torch._foreach_mul_(update, neg_lr)
+    torch._foreach_add_(params, update)
+
+
 class AccumulatingAdamW:
     """optax.MultiSteps(chain(clip_by_global_norm, adamw(schedule)), k) on a parameter list.
 
@@ -176,20 +197,8 @@ class AccumulatingAdamW:
             return
         norm = global_norm(self.acc)
         clip = torch.where(norm < cfg.grad_clip, torch.ones_like(norm), cfg.grad_clip / norm)
-        g = torch._foreach_mul(self.acc, clip)
-        b1, b2 = cfg.betas
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, g, alpha=1 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1 - b2)
-        denom = torch._foreach_div(self.nu, row[self.BC2])
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, 1e-8)
-        update = torch._foreach_div(self.mu, row[self.BC1])
-        torch._foreach_div_(update, denom)
-        torch._foreach_add_(update, self.params, alpha=cfg.weight_decay)
-        torch._foreach_mul_(update, row[self.NEG_LR])
-        torch._foreach_add_(self.params, update)
+        adamw_(self.params, torch._foreach_mul(self.acc, clip), self.mu, self.nu,
+               row[self.NEG_LR], row[self.BC1], row[self.BC2], cfg.betas, cfg.weight_decay)
         torch._foreach_zero_(self.acc)
 
     def step(self, grads) -> bool:
@@ -310,56 +319,56 @@ def _launch_counts() -> dict:
 
 
 class _Eager:
-    """Micro-steps run eagerly: on CPU tensors, and `train_step` on the card."""
+    """Steps run eagerly: on CPU tensors, and `train_step` on the card."""
 
     launches = {}
 
-    def __init__(self, trainer):
-        self.trainer = trainer
+    def __init__(self, device, fn):
+        self.device, self.fn = device, fn
 
-    def run(self, host: dict, slots, emits):
-        t = self.trainer
-        return t._steps({n: h.to(t.device, non_blocking=True) for n, h in host.items()}, slots,
-                        emits)
+    def run(self, host: dict):
+        return self.fn({n: h.to(self.device, non_blocking=True) for n, h in host.items()})
 
 
 class _StepGraph:
-    """K micro-steps captured as one CUDA graph at fixed shapes and emit pattern.
+    """K training steps, `fn` on a dict of stacked (K, ...) device tensors, captured
+    as one CUDA graph at fixed shapes.
 
-    The inputs (the stacked batch and the scalar rows) are static buffers
-    allocated outside the trainer's pool; `run` copies the host's pinned
-    arrays into them and replays. The (K, 5) metrics live in the shared pool:
-    read them before any other replay. Before the capture one eager run on a
-    side stream builds what is built at first use (kernels, cuBLAS and cuDNN
-    state); it is a real optimizer step, so the parameters and the
-    optimizer's state are restored after it (the capture itself runs
-    nothing). `launches` holds the kernel launches the capture recorded,
-    which each replay repeats; `warmup_launches` those of the eager run.
+    The inputs (`host`'s arrays: the stacked batches and the (K, width) scalar
+    "rows") are static buffers allocated outside `owner`'s pool; `run` copies
+    the host's pinned arrays into them and replays. The outputs live in the
+    shared pool: read them before any other replay. Before the capture one
+    eager run on a side stream builds what is built at first use (kernels,
+    cuBLAS and cuDNN state, cuFFT plans); its optimizer steps are real, so the
+    owner's state is snapshotted before it and restored after it (the capture
+    itself runs nothing). `generators` are registered with the graph, which
+    replays draw from. `launches` holds the kernel launches the capture
+    recorded, which each replay repeats; `warmup_launches` those of the eager
+    run.
     """
 
-    def __init__(self, trainer, host: dict, slots, emits):
-        dev = trainer.device
-        self.k = len(slots)
+    def __init__(self, owner, host: dict, fn, generators=()):
+        dev = owner.device
+        self.k = host["rows"].shape[0]
         self.inputs = {n: torch.empty(h.shape, dtype=h.dtype, device=dev) for n, h in host.items()}
         self._copy_in(host)
-        saved = trainer._snapshot()
+        saved = owner._snapshot()
         before = _launch_counts()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            trainer._steps(self.inputs, slots, emits)
+            fn(self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.warmup_launches = {n: c - before[n] for n, c in _launch_counts().items()}
-        trainer._restore(saved)
+        owner._restore(saved)
         del saved
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        for slot in slots:  # replays draw from the slots' generators
-            self.graph.register_generator_state(slot.noise)
-            self.graph.register_generator_state(slot.dropout)
+        for g in generators:
+            self.graph.register_generator_state(g)
         before = _launch_counts()
-        with torch.cuda.graph(self.graph, pool=trainer._pool, capture_error_mode="thread_local"):
-            self.outputs = trainer._steps(self.inputs, slots, emits)
+        with torch.cuda.graph(self.graph, pool=owner._pool, capture_error_mode="thread_local"):
+            self.outputs = fn(self.inputs)
         self.launches = {n: c - before[n] for n, c in _launch_counts().items()}
         self.capture_s = time.perf_counter() - t0
 
@@ -367,10 +376,40 @@ class _StepGraph:
         for n, dst in self.inputs.items():
             dst.copy_(host[n], non_blocking=True)
 
-    def run(self, host: dict, slots, emits):
+    def run(self, host: dict):
         self._copy_in(host)
         self.graph.replay()
         return self.outputs
+
+
+def host_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """`a` as a tensor for a copy to `device`: pinned when that is a card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
+def flush_logs(pending: list, wait: bool, log_every: int, log_row) -> None:
+    """Log the metric rows of `pending` [(first step, epoch, host rows, event)]
+    whose copies have landed (all of them with `wait`), in order:
+    `log_row(step, row, epoch)` for each step `log_every` picks."""
+    while pending and (wait or pending[0][3] is None or pending[0][3].query()):
+        first, epoch, rows, done = pending.pop(0)
+        if done is not None:
+            done.synchronize()
+        for i, r in enumerate(rows.tolist()):
+            if (first + i) % log_every == 0:
+                log_row(first + i, r, epoch)
+
+
+def copy_out(out: torch.Tensor):
+    """(host copy of `out`, CUDA event after the copy, or None on the CPU)."""
+    if out.device.type != "cuda":
+        return out.clone(), None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
 
 
 class Trainer:
@@ -457,10 +496,6 @@ class Trainer:
         for dst, src in zip(self._state(), saved):
             dst.copy_(src)
 
-    def _host(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.pin_memory() if self.device.type == "cuda" else t
-
     def dispatch(self, chunk, epoch: int, eager: bool = False) -> torch.Tensor:
         """Run the micro-steps of `chunk`, a list of (batch, schedule index)
         of one batch shape, in one dispatch: on the card one replay of the
@@ -469,23 +504,26 @@ class Trainer:
         Returns the (K, 5) metrics on the device, valid until the next
         dispatch."""
         k = len(chunk)
-        host = {n: self._host(np.stack([b[n] for b, _ in chunk])) for n in BATCH_KEYS}
+        host = {n: host_tensor(np.stack([b[n] for b, _ in chunk]), self.device)
+                for n in BATCH_KEYS}
         rows, emits = self.optimizer.advance(k)
-        host["rows"] = self._host(rows)
+        host["rows"] = host_tensor(rows, self.device)
         while len(self._slots) < k:
             self._slots.append(_Slot(self.device))
         slots = self._slots[:k]
+        fn = functools.partial(self._steps, slots=slots, emits=emits)
         if eager or self._pool is None:  # no graph pool on the CPU
-            runner = _Eager(self)
+            runner = _Eager(self.device, fn)
         else:
             key = (k, emits) + tuple(tuple(host[n].shape[1:]) for n in BATCH_KEYS)
             runner = self.graphs.get(key)
             if runner is None:
-                runner = self.graphs[key] = _StepGraph(self, host, slots, emits)
+                runner = self.graphs[key] = _StepGraph(
+                    self, host, fn, [g for slot in slots for g in (slot.noise, slot.dropout)])
             self.replays[k] = self.replays.get(k, 0) + 1
         for slot, (_, index) in zip(slots, chunk):
             slot.seed(batch_seeds(self.train_cfg.seed + 1, epoch, index))
-        out = runner.run(host, slots, emits)
+        out = runner.run(host)
         for name, n in runner.launches.items():
             self.launches[name] += n
         return out
@@ -515,26 +553,10 @@ class Trainer:
         return losses
 
     # ------------------------------------------------------------------ fit
-    def _copy_out(self, out: torch.Tensor):
-        """(host copy of `out`, event after the copy or None on the CPU)."""
-        if self.device.type != "cuda":
-            return out.clone(), None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
-
     def _flush_logs(self, pending: list, wait: bool) -> None:
-        """Log the metric rows of `pending` [(first step, epoch, host rows,
-        event)] whose copies have landed (all of them with `wait`), in order."""
-        while pending and (wait or pending[0][3] is None or pending[0][3].query()):
-            first, epoch, rows, done = pending.pop(0)
-            if done is not None:
-                done.synchronize()
-            for i, r in enumerate(rows.tolist()):
-                if (first + i) % self.train_cfg.log_every == 0:
-                    self.logger.log(first + i, self._named(r), prefix="train/", epoch=epoch)
+        flush_logs(pending, wait, self.train_cfg.log_every,
+                   lambda step, row, epoch: self.logger.log(step, self._named(row),
+                                                            prefix="train/", epoch=epoch))
 
     def fit(self, train_ds, val_ds, max_epochs: Optional[int] = None, resume: bool = True) -> int:
         """Train to `max_epochs`, resuming from the latest checkpoint; returns the
@@ -571,7 +593,7 @@ class Trainer:
                                 profiler = start_trace(self.device)
                             out = self.dispatch(group, epoch)
                             if any((step + i) % cfg.log_every == 0 for i in range(len(group))):
-                                pending.append((step, epoch, *self._copy_out(out)))
+                                pending.append((step, epoch, *copy_out(out)))
                             epoch_out["result"] = out
                             dispatches += 1
                             step += len(group)

@@ -22,7 +22,9 @@ leaked = sorted(n for n in sys.modules
                 if n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
                 or n == "matcha_tpu" or n.startswith("matcha_tpu."))
 new = {"matcha_tpu_torch.nn.dropout", "matcha_tpu_torch.data.ljspeech",
-       "matcha_tpu_torch.utils.profiling", "matcha_tpu_torch.utils.plotting"}
+       "matcha_tpu_torch.utils.profiling", "matcha_tpu_torch.utils.plotting",
+       "matcha_tpu_torch.data.audio_dataset", "matcha_tpu_torch.train.vocoder",
+       "matcha_tpu_torch.cli.train_vocoder"}
 assert new <= set(names), new - set(names)
 print("MODULES", len(names))
 print("LEAKED", leaked)
@@ -48,6 +50,8 @@ from matcha_tpu_torch.ops.attention import attention, attention_backward
 from matcha_tpu_torch.ops.mrf import mrf_step
 from matcha_tpu_torch.serve import ServeConfig, TTSEngine
 from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+from matcha_tpu_torch.train.vocoder import VocoderTrainConfig, VocoderTrainer
+from matcha_tpu_torch.cli import train_vocoder
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device(None),
@@ -57,7 +61,9 @@ for call in (lambda: resolve_device(None),
                                HiFiGANConfig(num_mels=8)),
              lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir")),
              lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir",
-                                                        steps_per_dispatch=4))):
+                                                        steps_per_dispatch=4)),
+             lambda: VocoderTrainer(train_cfg=VocoderTrainConfig(ckpt_dir="unused-ckpt-dir")),
+             lambda: train_vocoder.main(["--synthetic", "--ckpt-dir", "unused-ckpt-dir"])):
     try:
         call()
     except RuntimeError as e:
