@@ -67,12 +67,27 @@ PyTorch built for CUDA. In order:
    and K1 60 a replay, none eager; K2 36 recorded at capture; the profiler
    agrees), each waveform against the training-form generator on the
    engine's own mel within K2's f32 and bf16 bars;
-6. holds the port on the card against itself on the CPU in float32 with TF32
+6. the entry points as a user calls them, on the card with no --device, from
+   the reference's file formats (a Lightning `.ckpt` and a weight-normed
+   `generator_v1`, written from the same random weights): `cli.generate` at
+   10 steps with HiFi-GAN (K1 60 and K2 36 counted between a reset and a
+   read) and with Griffin-Lim (K1 60, K2 0), mel and wav against the same
+   calls made directly; `cli.serve --bf16 --int16` with HiFi-GAN on 4 texts,
+   plain, --concurrent and --low-latency, every wav bit-equal to the CLI's
+   engine's direct call with the same seed, the engine's launches whole
+   replays of K1 60 and K2 36 a decode graph, none eager but the captures;
+   `cli.bench_mas` (the fused MAS kernel bit-equal to the plain version and
+   the C++ MAS at (8, 50, 200), (16, 100, 500) and (32, 150, 800), then
+   timed); `cli.vocoder_report --synthetic --n 4` on the trained vocoder
+   store (K2 36 an item, each item's waveform against the training-form
+   generator on the same mel within K2's f32 bar);
+7. holds the port on the card against itself on the CPU in float32 with TF32
    off (one served text; one training forward and backward, losses and
    gradients) and against the frozen reference outputs of
    `tests/fixtures/golden_e2e*.npz`;
-7. at every shape each path gave each kernel (the Griffin-Lim engine's K1 in
-   f32 and the trained vocoder's K1 and K2 in both dtypes included), holds
+8. at every shape each path gave each kernel (the Griffin-Lim engine's K1 in
+   f32, the trained vocoder's K1 and K2 in both dtypes, generate's K1 and K2
+   and vocoder_report's K2 in f32 and bench_mas's MAS included), holds
    the kernel against its plain version and times the kernel, its plain
    version and the matching PyTorch call, beside the least time the card could take; times K1 and K4
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
@@ -533,13 +548,17 @@ def mrf_shapes(hcfg, mel_frames):
     return shapes
 
 
-def reset_serving_counts(engine):
-    """Every serving count to 0: the engine's graph accounting and the wrappers'."""
+def reset_wrapper_counts():
     from matcha_tpu_torch.serve import COUNTED
 
     for w in COUNTED.values():
         w.launches = 0
-    engine.launches = {name: 0 for name in COUNTED}
+
+
+def reset_serving_counts(engine):
+    """Every serving count to 0: the engine's graph accounting and the wrappers'."""
+    reset_wrapper_counts()
+    engine.launches = {name: 0 for name in engine.launches}
 
 
 def wrapper_counts():
@@ -2004,6 +2023,331 @@ def vocoder_train_path(dev, mcfg, seed, root, hcfg, disc_kw=None, segment=8192):
     return res
 
 
+# ---------------------------------------------------------------- entry points
+ENTRY_STEPS = 10
+# the serve CLI's texts: 51-55 characters, one 512-frame budget at ~6-7 frames
+# a character, so that the concurrent requests can form one group and one decode
+SERVE_CLI_TEXTS = ["The birch canoe slid on the smooth planks by the river.",
+                   "Glue the sheet to the dark blue background with care.",
+                   "It is easy to tell the depth of a well in the dark.",
+                   "Four hours of steady work faced us on the old farm."]
+
+
+def reference_checkpoints(mcfg, hcfg, seed, root):
+    """`model_weights` written as the reference's files: a Lightning `.ckpt`
+    and a `generator_v1` whose conv weights are split into weight_g (torch's
+    norm over every axis but 0) and weight_v."""
+    msd, gsd = model_weights(mcfg, hcfg, seed)
+    wn = {}
+    for key, val in gsd.items():
+        if key.endswith(".weight") and val.ndim == 3:
+            stem = key[: -len(".weight")]
+            wn[f"{stem}.weight_g"] = torch.linalg.vector_norm(val, dim=(1, 2), keepdim=True)
+            wn[f"{stem}.weight_v"] = val
+        else:
+            wn[key] = val
+    paths = (root / "matcha_final.ckpt", root / "generator_v1")
+    torch.save({"state_dict": msd, "epoch": 0}, paths[0])
+    torch.save({"generator": wn}, paths[1])
+    return paths
+
+
+def generate_run(dev, mcfg, hcfg, ckpt, gen_path, vocoder, seed, out_dir):
+    """`cli.generate` on the card (no --device), 10 steps, with the wrappers'
+    counts set to 0 just before and read just after; its mel (recorded from
+    `decode_fixed`) and its wav against the same calls made here on the same
+    files and seed: K1's f32 bar for the mel; for the waveform K2's f32 bar
+    (Griffin-Lim: K1's, its input being that mel) plus one PCM16 step."""
+    from matcha_tpu_torch.audio.griffin_lim import mel_to_audio
+    from matcha_tpu_torch.audio.mel import MelConfig, load_wav
+    from matcha_tpu_torch.cli import generate
+    from matcha_tpu_torch.compat.torch_import import (
+        load_hifigan_torch_checkpoint,
+        load_matcha_torch_checkpoint,
+    )
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.ops.masks import fix_len_compatibility
+    from matcha_tpu_torch.text import simple_text_to_sequence
+
+    argv = ["--text", TEXTS[2], "--torch-ckpt", str(ckpt), "--steps", str(ENTRY_STEPS),
+            "--seed", str(seed), "--vocoder", vocoder, "--out-dir", str(out_dir)]
+    if vocoder == "hifigan":
+        argv += ["--hifigan-ckpt", str(gen_path)]
+    decode, mels = MatchaTTS.decode_fixed, []
+
+    def recorded(self, *a, **kw):
+        out = decode(self, *a, **kw)
+        mels.append(out["mel"].clone())
+        return out
+
+    MatchaTTS.decode_fixed = recorded
+    try:
+        reset_wrapper_counts()
+        t0 = time.perf_counter()
+        generate.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = wrapper_counts()
+    finally:
+        MatchaTTS.decode_fixed = decode
+
+    model = MatchaTTS(mcfg).eval()
+    load_matcha_torch_checkpoint(ckpt, model)
+    model.to(dev)
+    seq = simple_text_to_sequence(TEXTS[2])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    enc = model.encode_durations(torch.tensor([seq], device=dev),
+                                 torch.tensor([len(seq)], device=dev))
+    budget = fix_len_compatibility(int(enc[3].max()))
+    ref = model.decode_fixed(*enc, budget, ENTRY_STEPS, 1.0, generator=gen)
+    n = int(ref["mel_lengths"][0])
+    (mel,) = mels
+    atol, rtol = TOL["float32"]
+    mel_err = max_err_within(mel[:, :n], ref["mel"][:, :n], atol, rtol, f"generate {vocoder} mel")
+    if vocoder == "hifigan":
+        want = load_hifigan_torch_checkpoint(gen_path).to(dev)(ref["mel"][:, :n])
+        atol, rtol = TOL_MRF_F32
+    else:
+        want = mel_to_audio(MelConfig(), ref["mel"][:, :n].transpose(1, 2), generator=gen)
+    want = want[0].float().cpu().clamp(-1.0, 1.0)
+    wav, sr = load_wav(out_dir / f"matcha_{vocoder}.wav")
+    if wav.shape != (n * 256,) or sr != 22050 or not np.isfinite(wav).all() \
+            or np.abs(wav).max() > 1.0 or np.abs(wav).max() == 0:
+        raise AssertionError(f"generate {vocoder}: wav {wav.shape} at {sr} Hz for {n} frames")
+    # the file holds int16(clip(x) * 32767); load_wav divides by 32768
+    wav_err = max_err_within(torch.from_numpy(wav * (32768 / 32767)), want, atol + 1 / 32767,
+                             rtol, f"generate {vocoder} waveform")
+    want_counts = {"attention_fwd": ENTRY_STEPS * sum(
+                       c for c, _ in attention_shapes(mcfg.decoder, budget)),
+                   "mrf_step": len(mrf_shapes(hcfg, 1)) if vocoder == "hifigan" else 0}
+    if counts != want_counts:
+        raise AssertionError(f"generate {vocoder}: launches {counts}, expected {want_counts}")
+    log(f"generate ({vocoder}, {ENTRY_STEPS} steps, {n} frames at budget {budget}): wall "
+        f"{wall:.2f} s, launches {counts}; mel vs the same calls {mel_err:.3g} (bar "
+        f"{TOL['float32']}), waveform {wav_err:.3g} (bar {atol} + one PCM16 step, rtol {rtol})")
+    return {"frames": n, "budget": budget, "wall_s": wall, "launches": counts,
+            "mel_max_abs_err": mel_err, "wav_max_abs_err": wav_err}
+
+
+def serve_cli_run(dev, ckpt, gen_path, mode, seed, out_dir):
+    """`cli.serve --bf16 --int16 --hifigan-ckpt` on the card on SERVE_CLI_TEXTS
+    (plain, --concurrent or --low-latency), the wrappers' counts set to 0 just
+    before. The CLI's engine (recorded as it is built) is then read: every
+    decode graph recorded K1 60 and K2 36 at capture, the replays added whole
+    multiples of that, and the wrappers ticked only in the captures (a warm-up
+    run and the capture each). Each wav is bit-equal to the engine's direct
+    call with the same seed: `synthesise(texts, seed)`, `synthesise_lowlatency(
+    text, seed + i)`, and for --concurrent `synthesise(texts, seeds)` when the
+    worker made one group of one budget (one decode); when it split the group
+    (arrival timing), each against its solo synthesis within TOL_WAV."""
+    from scipy.io import wavfile
+
+    from matcha_tpu_torch import serve as serve_mod
+    from matcha_tpu_torch.cli import serve
+
+    engines = []
+    base = serve_mod.TTSEngine
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    flags = {"plain": [], "concurrent": ["--concurrent"], "low_latency": ["--low-latency"]}
+    argv = ["--texts", *SERVE_CLI_TEXTS, "--torch-ckpt", str(ckpt), "--vocoder", "hifigan",
+            "--hifigan-ckpt", str(gen_path), "--bf16", "--int16", "--seed", str(seed),
+            "--out-dir", str(out_dir), *flags[mode]]
+    serve_mod.TTSEngine = Recorded
+    try:
+        reset_wrapper_counts()
+        t0 = time.perf_counter()
+        serve.main(argv)
+        wall = time.perf_counter() - t0
+        eager = wrapper_counts()
+    finally:
+        serve_mod.TTSEngine = base
+    (engine,) = engines
+    replayed = dict(engine.launches)
+    # a decode (or low-latency) graph: the U-Net's K1 at every step and the generator's K2
+    per_decode = {"attention_fwd": engine.cfg.n_timesteps
+                  * sum(c for c, _ in attention_shapes(engine.model.cfg.decoder, 1)),
+                  "mrf_step": len(mrf_shapes(engine.vocoder.cfg, 1))}
+    captured = {n: 0 for n in replayed}
+    for key, stage in engine._stages.items():
+        want = {n: 0 for n in replayed} if key[0] == "encode" else per_decode
+        if stage.launches != want:
+            raise AssertionError(f"serve CLI {mode}: stage {key} recorded {stage.launches}, "
+                                 f"expected {want}")
+        for n in captured:  # the warm-up run and the capture
+            captured[n] += 2 * stage.launches[n]
+    decodes = replayed["mrf_step"] // per_decode["mrf_step"]
+    if eager != captured or replayed != {n: decodes * v for n, v in per_decode.items()} \
+            or decodes < 1:
+        raise AssertionError(f"serve CLI {mode}: replayed {replayed}, eager {eager}; expected "
+                             f"whole decodes of {per_decode} and eager only at capture "
+                             f"{captured}")
+    got = [wavfile.read(out_dir / f"utt_{i:03d}.wav")[1] for i in range(len(SERVE_CLI_TEXTS))]
+    texts, seeds = SERVE_CLI_TEXTS, [seed + i for i in range(len(SERVE_CLI_TEXTS))]
+    if mode == "plain":
+        want, info = engine.synthesise(texts, seed=seed)
+        budgets = [info["budget"]]
+    elif mode == "low_latency":
+        res = [engine.synthesise_lowlatency(t, seed=s) for t, s in zip(texts, seeds)]
+        want, budgets = [w for w, _ in res], [i["budget"] for _, i in res]
+    elif decodes == 1:
+        want, info = engine.synthesise(texts, seeds=seeds)
+        budgets = [info["budget"]]
+    else:
+        want = None
+        solo = [engine.synthesise([t], seeds=[s]) for t, s in zip(texts, seeds)]
+        gaps = [max_err_within(torch.from_numpy(g.astype(np.float32)),
+                               torch.from_numpy(w[0].astype(np.float32)), TOL_WAV * 32767, 0.0,
+                               f"serve CLI concurrent text {i} vs solo")
+                for i, (g, (w, _)) in enumerate(zip(got, solo))]
+        budgets = [i["budget"] for _, i in solo]
+    if want is not None:
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"serve CLI {mode}: text {i} differs from the engine's "
+                                     f"direct call ({g.shape} vs {w.shape})")
+        gaps = [0.0] * len(got)
+    log(f"serve CLI ({mode}, bf16, int16, HiFi-GAN): {wall:.2f} s with {len(engine._stages)} "
+        f"graphs captured, {decodes} decode replay(s), budgets {budgets}, launches replayed "
+        f"{replayed}, eager {eager} (captures only); wavs "
+        f"{'bit-equal to the direct calls' if want is not None else f'within {TOL_WAV} of solo'}")
+    return {"wall_s": wall, "graphs": len(engine._stages), "decodes": decodes,
+            "budgets": budgets, "launches_replayed": replayed, "launches_at_capture": eager,
+            "bit_equal": want is not None, "max_abs_gap_pcm16": max(gaps)}
+
+
+def bench_mas_run(dev):
+    """`cli.bench_mas` on the card: it holds the fused kernel bit-equal to the
+    plain version and the C++ MAS at the reference's three shapes (Tx 50, 100
+    and 150: Tx 100 and 150 take the 4-cells-a-lane path), then times all
+    three. The MAS count set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    from matcha_tpu_torch.cli import bench_mas
+    from matcha_tpu_torch.ops import mas
+
+    mas.mas_cuda.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench_mas.main([])
+    wall = time.perf_counter() - t0
+    launches = mas.mas_cuda.launches
+    if launches != len(bench_mas.SHAPES) * (bench_mas.RUNS + 2):
+        raise AssertionError(f"bench_mas made {launches} MAS launches")
+    table = {}
+    for line in buf.getvalue().splitlines():
+        log(f"  bench_mas: {line}")
+        m = re.match(r"\s*\((\d+), (\d+), (\d+)\)\s+(\S+)\s+(\S+)\s+(\S+)", line)
+        if m:
+            table[m.group(1, 2, 3)] = {"kernel_ms": float(m.group(4)),
+                                       "plain_ms": float(m.group(5)),
+                                       "cpp_ms": float(m.group(6))}
+    if len(table) != len(bench_mas.SHAPES):
+        raise AssertionError(f"bench_mas printed {len(table)} rows")
+    log(f"bench_mas: kernel, plain and cpp bit-equal at {bench_mas.SHAPES}; {wall:.1f} s")
+    return {"wall_s": wall, "launches": launches, "runs": bench_mas.RUNS,
+            "table": {str(tuple(int(v) for v in k)): r for k, r in table.items()}}
+
+
+def vocoder_report_run(dev, hcfg, ckpt_dir, out):
+    """`cli.vocoder_report --synthetic --n 4` on the card on the vocoder phase's
+    trained store, the wrappers' counts set to 0 just before and read just
+    after: K2 36 a generator call, no K1. Each item's HiFi-GAN waveform
+    (recorded from `Generator.forward` with its mel) is held against the
+    training-form generator (plain convolutions, f32) on the same mel at
+    K2's f32 bar; the report holds a finite mel L1 per item and path."""
+    from matcha_tpu_torch.cli import vocoder_report
+    from matcha_tpu_torch.models.hifigan import Generator
+    from matcha_tpu_torch.train.checkpoints import CheckpointStore
+
+    n, forward, calls = 4, Generator.forward, []
+
+    def recorded(self, mel):
+        wav = forward(self, mel)
+        calls.append((mel.detach().clone(), wav.detach().clone()))
+        return wav
+
+    Generator.forward = recorded
+    try:
+        reset_wrapper_counts()
+        t0 = time.perf_counter()
+        vocoder_report.main(["--synthetic", "--n", str(n), "--vocoder-ckpt-dir", str(ckpt_dir),
+                             "--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = wrapper_counts()
+    finally:
+        Generator.forward = forward
+    want = {"attention_fwd": 0, "mrf_step": n * len(mrf_shapes(hcfg, 1))}
+    if counts != want or len(calls) != n:
+        raise AssertionError(f"vocoder_report launches {counts} in {len(calls)} generator "
+                             f"calls, expected {want} in {n}")
+    report = json.loads(out.read_text())
+    per_item = {p: r["mel_l1_per_item"] for p, r in report["paths"].items()}
+    if set(per_item) != {"griffin_lim", "hifigan_trained"} \
+            or any(len(v) != n or not np.isfinite(v).all() for v in per_item.values()):
+        raise AssertionError(f"vocoder_report wrote {per_item}")
+    train_form = Generator(hcfg, weight_norm=True)
+    train_form.load_state_dict(CheckpointStore(ckpt_dir).restore_params("best", "cpu")["gen"])
+    train_form.to(dev)
+    atol, rtol = TOL_MRF_F32
+    with torch.no_grad():
+        errs = [max_err_within(wav, train_form(mel), atol, rtol,
+                               f"vocoder_report item {i}: waveform vs the training form")
+                for i, (mel, wav) in enumerate(calls)]
+    frames = [mel.shape[1] for mel, _ in calls]
+    means = {p: r["mel_l1_mean"] for p, r in report["paths"].items()}
+    log(f"vocoder_report on the trained store ({n} synthetic items of {frames} frames): mel L1 "
+        f"{means}, launches {counts}, waveforms vs the training form {max(errs):.3g} (atol "
+        f"{atol}, rtol {rtol}), {wall:.1f} s")
+    return {"wall_s": wall, "launches": counts, "frames": frames, "max_abs_err": max(errs),
+            "bar": {"atol": atol, "rtol": rtol}, "mel_l1_mean": means, "report": report}
+
+
+def time_bench_mas(dev, step_ns, reps=20):
+    """The fused MAS kernel at bench_mas's shapes and inputs: held against its
+    plain version, timed beside it, with its bound (`mas_row`)."""
+    from matcha_tpu_torch.cli import bench_mas
+    from matcha_tpu_torch.ops import mas
+
+    rows = []
+    for b, tx, ty in bench_mas.SHAPES:
+        value, mask = (torch.from_numpy(a).to(dev) for a in bench_mas.make_problem(b, tx, ty))
+        t_x, t_y = mas.lengths_from_mask(mask)
+        calls = bench_mas.RUNS + 2  # its check, its warm-up and its timed calls
+        rows.append(dict({"path": "bench_mas", "dtype": "float32", "peak_flops": PEAK_F32_FLOPS,
+                          "shape": [b, tx, ty], "count": calls, "launches": calls},
+                         **mas_row(value, mask, t_x, t_y, step_ns, reps)))
+    log_rows({"mas": rows})
+    return rows
+
+
+def entry_points(dev, mcfg, hcfg, seed, root):
+    """The port's entry points on the card as a user calls them (no --device):
+    `generate` with HiFi-GAN and with Griffin-Lim, `serve` in its three modes,
+    `bench_mas` and `vocoder_report` (on the vocoder phase's store, root/voc),
+    from the reference's checkpoint formats written from `model_weights`."""
+    t0 = time.perf_counter()
+    ckpt, gen_path = reference_checkpoints(mcfg, hcfg, seed, root)
+    res = {"generate": {v: generate_run(dev, mcfg, hcfg, ckpt, gen_path, v, seed,
+                                        root / f"generate_{v}")
+                        for v in ("hifigan", "griffin_lim")},
+           "serve": {m: serve_cli_run(dev, ckpt, gen_path, m, seed, root / f"serve_{m}")
+                     for m in ("plain", "concurrent", "low_latency")},
+           "bench_mas": bench_mas_run(dev),
+           "vocoder_report": vocoder_report_run(dev, hcfg, root / "voc",
+                                                root / "vocoder_roundtrip.json")}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"entry points: {res['phase_s']:.1f} s")
+    return res
+
+
 # ---------------------------------------------------------------- phase 5
 def main_path_requests(engine):
     """(name, batch, budget, mel lengths) of the two decodes the main path ran."""
@@ -2013,37 +2357,40 @@ def main_path_requests(engine):
 
 
 def time_kernels(dev, mcfg, hcfg, seed, requests, path="serve", dtype=torch.bfloat16,
-                 n_timesteps=10, reps=20):
-    """At every shape a serving path gave K1 and K2 (K2 only with a HiFi-GAN
-    `hcfg`): the kernel against its plain version, then per-launch kernel,
-    plain and library times and each launch's bound."""
+                 n_timesteps=10, reps=20, vocoder_calls=1):
+    """At every shape a serving path gave K1 and K2 (K1 only with a Matcha
+    `mcfg`, K2 only with a HiFi-GAN `hcfg`, run `vocoder_calls` times at each
+    request's shapes): the kernel against its plain version, then per-launch
+    kernel, plain and library times and each launch's bound."""
     from matcha_tpu_torch.ops.mrf import mrf_plan, mrf_step_cuda, mrf_step_plain, pack_weights
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    dcfg, name = mcfg.decoder, str(dtype).split(".")[1]
+    name = str(dtype).split(".")[1]
     elt = torch.tensor([], dtype=dtype).element_size()
     atol, rtol = TOL_MRF_F32 if dtype == torch.float32 else TOL[name]
-    h, d = dcfg.num_heads, dcfg.attention_head_dim
-    scale = d ** -0.5
     common = {"path": path, "dtype": name, "peak_flops": PEAK_FLOPS[dtype]}
     rows = {"attention_fwd": [], "mrf_step": []}
-    for req, b, budget, mel_lengths in requests:
-        for count, t in attention_shapes(dcfg, budget):
+    # a request: (name, batch, frame budget, mel lengths[, frames the vocoder ran on,
+    # when that is not the budget])
+    for req, b, budget, mel_lengths, *voc in requests:
+        for count, t in attention_shapes(mcfg.decoder, budget) if mcfg is not None else []:
+            h, d = mcfg.decoder.num_heads, mcfg.decoder.attention_head_dim
             q, k, v, bias = attention_inputs(b, h, t, d, dtype, dev, gen, mel_lengths, budget)
             rows["attention_fwd"].append({
                 **common, "request": req, "shape": [b, h, t, d], "count": count * n_timesteps,
                 "launches": count * n_timesteps, "lse": False,
-                **attention_fwd_row(q, k, v, bias, scale, False, reps)})
-        for c, t, k, dil in (mrf_shapes(hcfg, budget) if hcfg is not None else []):
+                **attention_fwd_row(q, k, v, bias, d ** -0.5, False, reps)})
+        for c, t, k, dil in (mrf_shapes(hcfg, voc[0] if voc else budget)
+                             if hcfg is not None else []):
             args = mrf_inputs(b, c, t, k, dtype, dev, gen)
             packed = pack_weights(args[1], args[3])  # once, as ResBlock1 packs its weights
             err = max_err_within(mrf_step_cuda(*args, dil, packed), mrf_step_plain(*args, dil),
                                  atol, rtol, f"K2 {name} {req} {[b, c, t]} k={k} d={dil}")
             flops, nbytes = mrf_work(b, c, t, k, elt)
             rows["mrf_step"].append({
-                **common, "request": req, "shape": [b, c, t], "k": k, "d": dil, "count": 1,
-                "launches": 1, "max_abs_err": err, "flops": flops, "bytes": nbytes,
+                **common, "request": req, "shape": [b, c, t], "k": k, "d": dil,
+                "count": vocoder_calls, "launches": vocoder_calls, "max_abs_err": err, "flops": flops, "bytes": nbytes,
                 "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
                 "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
                 "library_ms": None,
@@ -2159,6 +2506,32 @@ def kernel_resources(build_log):
     return out
 
 
+def setup_card():
+    """A run's set-up on the card: float32 plain versions in full float32
+    (cuDNN would take TF32 by default), the card's name and power limit and
+    the versions printed, every kernel built and ptxas's resources printed.
+    Returns (device, the nvidia-smi line, build seconds, kernel names)."""
+    from matcha_tpu_torch import apply_tf32_policy
+    from matcha_tpu_torch.ops import _build
+
+    apply_tf32_policy()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"built {built} in {build_s:.1f} s")
+    for name in built:
+        for kernel, used in kernel_resources(_build.build_log(name)):
+            log(f"  {name} {kernel}: {used}")
+    return dev, smi, build_s, built
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
     ap.add_argument("--seed", type=int, default=0, help="seed of weights, inputs and noise")
@@ -2174,29 +2547,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no matcha_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from matcha_tpu_torch import apply_tf32_policy
     from matcha_tpu_torch.models.hifigan import HiFiGANConfig
     from matcha_tpu_torch.models.matcha import MatchaConfig
-    from matcha_tpu_torch.ops import _build
 
-    # float32 plain versions in full float32: cuDNN would take TF32 by default
-    apply_tf32_policy()
-
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    build_s = time.perf_counter() - t0
-    log(f"built {built} in {build_s:.1f} s")
-    for name in built:
-        for kernel, used in kernel_resources(_build.build_log(name)):
-            log(f"  {name} {kernel}: {used}")
-
+    dev, smi, build_s, _ = setup_card()
     mcfg, hcfg = MatchaConfig(), HiFiGANConfig()  # full width: Matcha-TTS and HiFi-GAN v1
     errs = check_kernels(dev, args.seed)
     errs.update(check_training_kernels(dev, args.seed))
@@ -2212,6 +2566,7 @@ def main(argv=None) -> int:
         training = train_main_path(dev, mcfg, args.seed, Path(tmp))
         train_graphs = train_graph_checks(dev, mcfg, args.seed, Path(tmp))
         vocoder = vocoder_train_path(dev, mcfg, args.seed, Path(tmp), hcfg)
+        entry = entry_points(dev, mcfg, hcfg, args.seed, Path(tmp))
         e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
                "golden": golden_on_card(dev),
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
@@ -2228,6 +2583,21 @@ def main(argv=None) -> int:
             for name, rs in time_kernels(dev, mcfg, hcfg, args.seed, requests_voc, "vocoder",
                                          getattr(torch, dtype)).items():
                 rows[name].extend(rs)
+        generated = entry["generate"]
+        for path, hc, run in (("generate", hcfg, generated["hifigan"]),
+                              ("generate_gl", None, generated["griffin_lim"])):
+            request = ("generate", 1, run["budget"], [run["frames"]], run["frames"])
+            for name, rs in time_kernels(dev, mcfg, hc, args.seed, [request], path,
+                                         torch.float32).items():
+                rows[name].extend(rs)
+        report = entry["vocoder_report"]
+        for frames in sorted(set(report["frames"])):
+            request = ("vocoder_report", 1, frames, [frames], frames)
+            for name, rs in time_kernels(dev, None, hcfg, args.seed, [request], "vocoder_report",
+                                         torch.float32,
+                                         vocoder_calls=report["frames"].count(frames)).items():
+                rows[name].extend(rs)
+        rows["mas"].extend(time_bench_mas(dev, step_ns))
         per_call = time_attention_per_call(dev, args.seed)
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
@@ -2244,11 +2614,26 @@ def main(argv=None) -> int:
                     f"synthetic items: 4 GAN steps an epoch) on CUDA graphs, no K2 in training; "
                     f"the trained generator folded and served, one low-latency request at "
                     f"budget {VOC_BUDGET} through an f32 and a bf16 HiFi-GAN engine's graphs")
+    generate_work = (f"cli.generate at full width, f32, {ENTRY_STEPS} steps, batch 1: "
+                     f"{generated['hifigan']['frames']} frames at budget "
+                     f"{generated['hifigan']['budget']}, HiFi-GAN from a generator_v1 file")
+    generate_gl_work = "the same generate run with Griffin-Lim"
+    report_work = (f"cli.vocoder_report --synthetic on the trained store: "
+                   f"{len(report['frames'])} generator calls at {report['frames']} frames, "
+                   f"batch 1, f32, eager")
+    bench_work = (f"cli.bench_mas at {', '.join(entry['bench_mas']['table'])}: a check, a "
+                  f"warm-up and {entry['bench_mas']['runs']} timed calls each")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
                                     "train": training["launches"],
-                                    "vocoder": vocoder["launches"]},
+                                    "vocoder": vocoder["launches"],
+                                    "generate": generated["hifigan"]["launches"],
+                                    "generate_gl": generated["griffin_lim"]["launches"],
+                                    "vocoder_report": report["launches"],
+                                    "bench_mas": {"mas": entry["bench_mas"]["launches"]}},
                        {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work,
-                        "vocoder": vocoder_work})
+                        "vocoder": vocoder_work, "generate": generate_work,
+                        "generate_gl": generate_gl_work, "vocoder_report": report_work,
+                        "bench_mas": bench_work})
     for k in line["kernels"]:
         if k["name"] == "mas":
             k["chain_step_ns"] = step_ns
@@ -2258,6 +2643,7 @@ def main(argv=None) -> int:
         {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
          "chain_step_ns": step_ns, "engine": engine, "engine_griffin_lim": engine_gl,
          "training": training, "train_graphs": train_graphs, "vocoder_training": vocoder,
+         "entry_points": entry,
          "e2e": e2e, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))

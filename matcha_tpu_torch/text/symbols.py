@@ -1,8 +1,11 @@
 """Symbol inventory for text input (a copy of the reference's 150-symbol table).
 
 pad `_` (id 0), eos `~` (id 1), `<unk>` (id 2), 52 ASCII letters, 11 punctuation
-characters including space, and 84 ARPAbet symbols prefixed with `@`.
+characters including space, and the 84 ARPAbet symbols of `cmudict.valid_symbols`
+prefixed with `@`, so they never collide with uppercase letters.
 """
+
+from matcha_tpu_torch.text.cmudict import valid_symbols
 
 PAD = "_"
 EOS = "~"
@@ -10,16 +13,13 @@ UNK = "<unk>"
 
 _characters = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz!'(),-.:;? "
 
-ARPABET = [
-    "AA", "AA0", "AA1", "AA2", "AE", "AE0", "AE1", "AE2", "AH", "AH0", "AH1", "AH2",
-    "AO", "AO0", "AO1", "AO2", "AW", "AW0", "AW1", "AW2", "AY", "AY0", "AY1", "AY2",
-    "B", "CH", "D", "DH", "EH", "EH0", "EH1", "EH2", "ER", "ER0", "ER1", "ER2", "EY",
-    "EY0", "EY1", "EY2", "F", "G", "HH", "IH", "IH0", "IH1", "IH2", "IY", "IY0", "IY1",
-    "IY2", "JH", "K", "L", "M", "N", "NG", "OW", "OW0", "OW1", "OW2", "OY", "OY0",
-    "OY1", "OY2", "P", "R", "S", "SH", "T", "TH", "UH", "UH0", "UH1", "UH2", "UW",
-    "UW0", "UW1", "UW2", "V", "W", "Y", "Z", "ZH",
-]
+_arpabet = ["@" + s for s in valid_symbols]
 
-symbols = [PAD, EOS, UNK] + list(_characters) + ["@" + s for s in ARPABET]
+symbols = [PAD, EOS, UNK] + list(_characters) + _arpabet
 
 SYMBOL_TO_ID = {s: i for i, s in enumerate(symbols)}
+ID_TO_SYMBOL = {i: s for i, s in enumerate(symbols)}
+
+PAD_ID = SYMBOL_TO_ID[PAD]
+EOS_ID = SYMBOL_TO_ID[EOS]
+UNK_ID = SYMBOL_TO_ID[UNK]

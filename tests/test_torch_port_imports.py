@@ -24,7 +24,11 @@ leaked = sorted(n for n in sys.modules
 new = {"matcha_tpu_torch.nn.dropout", "matcha_tpu_torch.data.ljspeech",
        "matcha_tpu_torch.utils.profiling", "matcha_tpu_torch.utils.plotting",
        "matcha_tpu_torch.data.audio_dataset", "matcha_tpu_torch.train.vocoder",
-       "matcha_tpu_torch.cli.train_vocoder"}
+       "matcha_tpu_torch.cli.train_vocoder", "matcha_tpu_torch.text.cmudict",
+       "matcha_tpu_torch.compat.torch_import", "matcha_tpu_torch.ops.mas_cpp",
+       "matcha_tpu_torch.cli.generate", "matcha_tpu_torch.cli.serve",
+       "matcha_tpu_torch.cli.bench_mas", "matcha_tpu_torch.cli.vocoder_report",
+       "matcha_tpu_torch.cli.analyze", "matcha_tpu_torch.data.download"}
 assert new <= set(names), new - set(names)
 print("MODULES", len(names))
 print("LEAKED", leaked)
@@ -51,7 +55,7 @@ from matcha_tpu_torch.ops.mrf import mrf_step
 from matcha_tpu_torch.serve import ServeConfig, TTSEngine
 from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 from matcha_tpu_torch.train.vocoder import VocoderTrainConfig, VocoderTrainer
-from matcha_tpu_torch.cli import train_vocoder
+from matcha_tpu_torch.cli import bench_mas, generate, serve, train_vocoder, vocoder_report
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device(None),
@@ -63,7 +67,13 @@ for call in (lambda: resolve_device(None),
              lambda: Trainer(tiny_config(), TrainConfig(ckpt_dir="unused-ckpt-dir",
                                                         steps_per_dispatch=4)),
              lambda: VocoderTrainer(train_cfg=VocoderTrainConfig(ckpt_dir="unused-ckpt-dir")),
-             lambda: train_vocoder.main(["--synthetic", "--ckpt-dir", "unused-ckpt-dir"])):
+             lambda: train_vocoder.main(["--synthetic", "--ckpt-dir", "unused-ckpt-dir"]),
+             lambda: generate.main(["--ckpt-dir", "unused-ckpt-dir",
+                                    "--out-dir", "unused-ckpt-dir"]),
+             lambda: serve.main(["--texts", "a", "--ckpt-dir", "unused-ckpt-dir",
+                                 "--out-dir", "unused-ckpt-dir"]),
+             lambda: bench_mas.main([]),
+             lambda: vocoder_report.main(["--synthetic", "--out", "unused-ckpt-dir/r.json"])):
     try:
         call()
     except RuntimeError as e:

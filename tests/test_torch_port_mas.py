@@ -3,7 +3,8 @@
 `maximum_path_plain`'s path must be bit-equal to `maximum_path_ref` (lax.scan),
 `maximum_path_pallas` (the TPU kernels in interpret mode) and the C++
 reference `maximum_path_cpp`, at the shapes of tests/test_mas.py, and follow
-PyTorch's promotion for bf16 inputs and masks with holes. The fused CUDA
+PyTorch's promotion for bf16 inputs and masks with holes. The port's own copy
+of the C++ MAS (`ops/mas_cpp.py`) is bit-equal to the JAX package's. The fused CUDA
 kernel (K3a and K3b in one launch) is held bit-equal to the plain version on
 the card by chip_smoke.py; its shared-memory plan `mas_plan` is checked here.
 """
@@ -14,7 +15,8 @@ import torch
 
 from matcha_tpu.ops import maximum_path_pallas, maximum_path_ref
 from matcha_tpu.ops.mas_cpp import mas_batch_cpp, maximum_path_cpp
-from matcha_tpu_torch.ops import mas
+from matcha_tpu_torch.ops import _build, mas
+from matcha_tpu_torch.ops import mas_cpp as port_cpp
 from tests.test_mas import _check_path_valid, _random_problem
 
 
@@ -46,6 +48,33 @@ def test_plain_bit_equal_to_ref_pallas_and_cpp(b, tx, ty):
     np.testing.assert_array_equal(got, maximum_path_cpp(value, mask))
     if tx > 1:  # Tx = 1 is covered by ref and cpp
         np.testing.assert_array_equal(got, np.asarray(maximum_path_pallas(value, mask)))
+
+
+@pytest.mark.parametrize("b,tx,ty", [(4, 17, 40), (8, 50, 200), (3, 1, 5), (2, 13, 13),
+                                     (16, 100, 500)])
+def test_port_cpp_bit_equal_to_jax_cpp_and_plain(b, tx, ty):
+    """The port's copy of the C++ MAS (`csrc/mas_cpu.cpp`, built into the
+    port's build directory) against the JAX package's and the plain version."""
+    rng = np.random.default_rng(b * 31 + ty)
+    value, mask, t_x, t_y = _random_problem(rng, b, tx, ty)
+    got = port_cpp.maximum_path_cpp(value, mask)
+    assert got.dtype == np.float32
+    _check_path_valid(got, t_x, t_y)
+    np.testing.assert_array_equal(got, maximum_path_cpp(value, mask))
+    np.testing.assert_array_equal(got, _port(value, mask))
+    raw = port_cpp.mas_batch_cpp(value * mask, t_x, t_y)
+    assert raw.dtype == np.int32
+    np.testing.assert_array_equal(raw, mas_batch_cpp(value * mask, t_x, t_y))
+    lib = _build._lib_path("mas_cpu")
+    assert lib.parent == _build.BUILD_DIR and lib.exists()
+
+
+def test_port_cpp_refuses_lengths_past_the_scores():
+    value = np.zeros((2, 4, 6), np.float32)
+    with pytest.raises(ValueError, match="lengths past"):
+        port_cpp.mas_batch_cpp(value, np.array([4, 5]), np.array([6, 6]))
+    with pytest.raises(ValueError, match="for a batch of 2"):
+        port_cpp.mas_batch_cpp(value, np.array([4]), np.array([6]))
 
 
 def test_equal_lengths_give_the_diagonal():
