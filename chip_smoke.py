@@ -95,6 +95,25 @@ PyTorch built for CUDA. In order:
    request and of a batch of 4 at 512, in both dtypes, beside its plain
    version, the unfused PyTorch sequence and its bound, summed by stage.
 
+9. (run after 6) the `parallel` phase: this process as one rank of a
+   torchrun-style group on NCCL (`init_distributed`, idempotent), at full
+   width: `Trainer.fit` (one epoch of the bucket set at K = 2, fp32) on a
+   data group and with the tensor-parallel path at model 1, every
+   micro-step a replay with its all-reduces captured, launches per
+   micro-step and validation as without a group, logs and parameters within
+   the training graphs' bars of a trainer without a group, and a micro-step's
+   median replayed wall and busy ms with and without; one K = 4 graph of GAN
+   steps on a data group against none, and a GAN step's wall and busy ms;
+   `TTSEngine(mesh=)` over the card bit-equal to the engine without a mesh,
+   with the same launches; `ring_attention` at one rank and the ring's K1
+   block steps with their f32 lse merge over 4 blocks for 4 ranks in this
+   process, at (B, T) = (4, 512) and (4, 256) in f32 and bf16, against K1
+   over the whole T; `decode_fixed` with `seq_axis` on a one-rank mesh
+   against `decode_fixed` (budget 512, 10 steps, f32); `cli.bench_scaling
+   --devices 1`. The path's launches are the runs' with a group, a mesh or a
+   ring (the references' are not counted), timed at their shapes as path
+   `parallel`.
+
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed phase raises and the script exits non-zero; so does a machine with
@@ -827,7 +846,7 @@ KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
                  ("matmul", "gemm"), ("matmul", "gemv"), ("fft", "fft"),
                  ("normalization", "moments"),
                  ("normalization", "norm"), ("elementwise", "elementwise"),
-                 ("reduction", "reduce"))
+                 ("reduction", "reduce"), ("nccl", "nccl"))
 
 
 def profile_request(call):
@@ -1466,7 +1485,7 @@ def mas_row(value, mask, t_x, t_y, step_ns, reps):
             "library_ms": None}
 
 
-def time_training_kernels(dev, mcfg, seed, batches, step_ns, reps=20):
+def time_training_kernels(dev, mcfg, seed, batches, step_ns, reps=20, path="train"):
     """At every shape the training path gave K1, MAS and K4: the kernel against
     its plain version, then kernel, plain and library times and the bound.
     Inputs are random at the path's shapes and lengths (a MAS's time does not
@@ -1493,7 +1512,7 @@ def time_training_kernels(dev, mcfg, seed, batches, step_ns, reps=20):
         if kind == "mas":
             value, mask, t_x, t_y = mas_batch_inputs(key, dev, gen)
             rows["mas"].append(dict(
-                {"path": "train", "dtype": "float32", "peak_flops": PEAK_F32_FLOPS,
+                {"path": path, "dtype": "float32", "peak_flops": PEAK_F32_FLOPS,
                  "shape": list(value.shape), "count": count, "launches": count},
                 **mas_row(value, mask, t_x, t_y, step_ns, reps)))
             continue
@@ -1501,7 +1520,7 @@ def time_training_kernels(dev, mcfg, seed, batches, step_ns, reps=20):
         dtype = getattr(torch, dtype_name)
         bsz = len(y_lengths)
         q, k, v, bias = attention_inputs(bsz, h, t, d, dtype, dev, gen, list(y_lengths), frames)
-        common = {"path": "train", "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype],
+        common = {"path": path, "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype],
                   "shape": [bsz, h, t, d], "count": count}
         if kind == "fwd":
             rows["attention_fwd"].append(dict(
@@ -2349,6 +2368,386 @@ def entry_points(dev, mcfg, hcfg, seed, root):
 
 
 # ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- parallel
+# the decoder's attention at the 512-frame budget of the 4-text request: (B, T)
+# of its two U-Net levels
+PAR_RING = ((4, 512), (4, 256))
+PAR_BLOCKS = 4  # the ring's per-rank computation over T cut into this many blocks
+PAR_DECODE_BUDGET = 512
+# seq-parallel decode at one rank against decode_fixed, f32 mel: the halo
+# convolutions and the summed GroupNorm statistics are other float32 sums than
+# cuDNN's and GroupNorm's, carried through 10 Euler steps of the U-Net
+TOL_SEQ_MEL = 1e-4
+
+
+def join_one_rank(dev):
+    """This process as the one rank of a group, as `torchrun --nproc_per_node
+    1` would start it: the launcher's variables set, `init_distributed` on
+    NCCL, bound to `dev`."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from matcha_tpu_torch.parallel import init_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK=str(dev.index or 0))
+    joined = init_distributed(dev)
+    if not joined or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"init_distributed joined {joined}, backend "
+                             f"{dist.get_backend()}, world {dist.get_world_size()}")
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "again": init_distributed(dev)}
+
+
+def counting(run):
+    """run() with every wrapper's count set to 0 just before and read just
+    after: (its result, {kernel: launches})."""
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = run()
+    return out, {n: c.launches for n, c in counters.items()}
+
+
+def add_counts(total, counts):
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
+
+
+def par_fit(dev, mcfg, seed, root, name, mesh):
+    """One epoch of `fit` at full width at K = 2 (fp32) on the bucket set (runs
+    of same-shape batches, so that K = 2 graphs replay), with `mesh` or none."""
+    from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    train_ds, val_ds, dcfg, _ = bucket_batches(mcfg)
+    trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(root / name), log_every=1, seed=seed,
+                                        steps_per_dispatch=2), dcfg, device=dev, mesh=mesh)
+    trainer.fit(train_ds, val_ds, max_epochs=1)
+    torch.cuda.synchronize()
+    return trainer
+
+
+def metric_rows(ckpt_dir, prefix):
+    from matcha_tpu_torch.train.trainer import METRICS
+
+    rows = read_metrics(ckpt_dir)[0 if prefix == "train/" else 1]
+    keys = METRICS if prefix == "train/" else ("dur_loss", "prior_loss", "diff_loss", "loss")
+    return torch.tensor([[r[prefix + k] for k in keys] for r in rows], dtype=torch.float64)
+
+
+def step_walls(trainer, batch, reps=20):
+    """Median wall ms of `reps` 1-step replays of `batch` (the graph captured
+    first) and a profile of two of them (busy ms, NCCL's share)."""
+    trainer.dispatch([(batch, 0)], 0)
+    torch.cuda.synchronize()
+    walls = synced_walls(lambda: trainer.dispatch([(batch, 0)], 0), reps)
+    prof = per_step_profile(lambda: trainer.dispatch([(batch, 0)], 0))
+    return {"wall_ms_median": float(np.median(walls)), "wall_ms": walls,
+            "busy_ms_per_step": prof.get("busy_ms_per_step", "not measured"),
+            "nccl_ms_per_step": prof.get("by_group_ms", {}).get("nccl", 0.0) / 2,
+            "nccl_kernels_per_step": prof.get("launches_by_group", {}).get("nccl", 0) / 2}
+
+
+def parallel_training(dev, mcfg, seed, root):
+    """`fit` (one epoch at K = 2, fp32) on a data group and with the
+    tensor-parallel path at model = 1, each against a trainer without a group
+    from the same seed: every micro-step a replay with its all-reduces
+    captured, launches per micro-step and validation as without a group,
+    logged metrics and final parameters within the training graphs' bars.
+    Then a micro-step's median replayed wall with and without the group."""
+    from matcha_tpu_torch.data.dataset import batch_iterator, num_batches
+    from matcha_tpu_torch.parallel import make_mesh
+
+    train_ds, val_ds, dcfg, _ = bucket_batches(mcfg)
+    ref = par_fit(dev, mcfg, seed, root, "par_none", None)
+    ref_params = [p.detach().clone() for p in ref.params]
+    want_rows = {p: metric_rows(root / "par_none", p) for p in ("train/", "val/")}
+    batch = next(iter(batch_iterator(train_ds, dcfg, epoch=0)))
+    batch.pop("n_real")
+    walls = {"none": step_walls(ref, batch)}
+    micro = num_batches(BUCKET_ITEMS, dcfg)
+    val_batches = num_batches(VAL_ITEMS, dcfg, drop_last=False)
+    step_launches = per_micro_step(mcfg)
+    want = {n: micro * c for n, c in step_launches.items()}
+    validation = {"mas": val_batches, "attention_fwd": val_batches * step_launches["attention_fwd"],
+                  "attention_bwd": 0}
+    total, runs = {}, {}
+    for name, model in (("dp", None), ("tp", 1)):
+        mesh = make_mesh(model=model)
+        trainer, ticks = counting(lambda: par_fit(dev, mcfg, seed, root, f"par_{name}", mesh))
+        check_graph_launches(trainer, mcfg)
+        captured = {n: sum(g.launches[n] + g.warmup_launches[n] for g in trainer.graphs.values())
+                    for n in trainer.launches}
+        eager = {n: ticks[n] - captured[n] for n in trainer.launches}
+        if dict(trainer.launches) != want or eager != validation or ticks["mrf_step"] \
+                or 2 not in trainer.replays:
+            raise AssertionError(f"{name}: replayed {trainer.launches}, eager {eager}; "
+                                 f"expected {want} and {validation}")
+        add_counts(total, {n: trainer.launches[n] + eager[n] for n in trainer.launches})
+        gaps = {p: metric_gap(metric_rows(root / f"par_{name}", p), want_rows[p],
+                              f"{name} {p} logs") for p in ("train/", "val/")}
+        runs[name] = {"mesh": mesh.shape, "tensor_parallel": trainer._tp is not None,
+                      "params": param_gap(trainer.params, ref_params, ref.train_cfg.lr),
+                      "metrics": gaps, "replays": {str(k): n for k, n in trainer.replays.items()},
+                      "launches_replayed": dict(trainer.launches), "launches_eager": eager}
+        walls[name] = step_walls(trainer, batch)
+        log(f"parallel {name} (mesh {mesh.shape}): fit replays {runs[name]['replays']}, "
+            f"parameters vs no group {runs[name]['params']}, logs {gaps}")
+        del trainer
+    log(f"training micro-step, fp32, batch 16, replayed: median wall ms no group "
+        f"{walls['none']['wall_ms_median']:.3f}, data group {walls['dp']['wall_ms_median']:.3f}, "
+        f"tensor-parallel path {walls['tp']['wall_ms_median']:.3f}; busy ms a step "
+        f"{walls['none']['busy_ms_per_step']} / {walls['dp']['busy_ms_per_step']} / "
+        f"{walls['tp']['busy_ms_per_step']}; NCCL kernels a step "
+        f"{walls['dp']['nccl_kernels_per_step']} / {walls['tp']['nccl_kernels_per_step']}, "
+        f"NCCL ms {walls['dp']['nccl_ms_per_step']:.4f} / {walls['tp']['nccl_ms_per_step']:.4f}")
+    return {"runs": runs, "walls": walls, "launches": total,
+            "batches": 2 * ([("train", "fp32", b) for b in batch_iterator(train_ds, dcfg, epoch=0)]
+                            + [("val", "fp32", b) for b in batch_iterator(
+                                val_ds, dcfg, epoch=0, shuffle=False, drop_last=False)])}
+
+
+def parallel_vocoder(dev, seed, root, hcfg):
+    """One K = 4 graph of GAN steps at full width on a data group against a
+    trainer without one, from the same seed and batches (metrics within the
+    training bars, parameters within the drift bars); then a GAN step's
+    median replayed wall with and without the group."""
+    from matcha_tpu_torch.data.audio_dataset import AudioDataConfig, SyntheticWavDataset
+    from matcha_tpu_torch.parallel import make_mesh
+    from matcha_tpu_torch.train.vocoder import VocoderTrainConfig, VocoderTrainer
+
+    dcfg = AudioDataConfig(batch_size=16)
+    ds = SyntheticWavDataset(n_items=VOC_ITEMS, segment_size=dcfg.segment_size)
+    out = {}
+    for name, mesh in (("none", None), ("dp", make_mesh(model=None))):
+        tr = VocoderTrainer(hcfg, VocoderTrainConfig(ckpt_dir=str(root / f"par_voc_{name}"),
+                                                     seed=seed, steps_per_dispatch=4),
+                            dcfg, device=dev, mesh=mesh)
+        tr.init_optimizers(VOC_ITEMS // dcfg.batch_size)
+        batches = list(tr._batches(ds, epoch=0))
+        metrics = tr.dispatch(batches).clone()
+        torch.cuda.synchronize()
+        if tr.eager_steps or tr.replays != {4: 1}:
+            raise AssertionError(f"vocoder {name}: {tr.eager_steps} eager steps, replays "
+                                 f"{tr.replays}")
+        params = [p.detach().clone() for p in tr.opt_g.params + tr.opt_d.params]
+        walls = synced_walls(lambda: tr.dispatch(batches[:1]), 11)[1:]  # the first captures
+        prof = profile_request(lambda: tr.dispatch(batches[:1]))
+        out[name] = {"metrics": metrics, "params": params,
+                     "wall_ms_median": float(np.median(walls)), "wall_ms": walls,
+                     "busy_ms": prof.get("device_ms", "not measured"),
+                     "nccl_ms": prof.get("by_group_ms", {}).get("nccl", 0.0)}
+        del tr
+    res = {"metrics": metric_gap(out["dp"]["metrics"], out["none"]["metrics"], "vocoder dp"),
+           "params": param_gap(out["dp"]["params"], out["none"]["params"],
+                               VocoderTrainConfig().lr),
+           "walls": {n: {k: v for k, v in o.items() if k not in ("metrics", "params")}
+                     for n, o in out.items()}}
+    log(f"parallel vocoder K = 4 graph on a data group vs none: metrics {res['metrics']}, "
+        f"parameters {res['params']}; GAN step median wall ms none "
+        f"{out['none']['wall_ms_median']:.2f}, data group {out['dp']['wall_ms_median']:.2f}; busy "
+        f"ms {out['none']['busy_ms']} / {out['dp']['busy_ms']}, NCCL ms {out['dp']['nccl_ms']}")
+    return res
+
+
+def parallel_serving(dev, mcfg, hcfg, seed):
+    """`TTSEngine(mesh=)` over the one card against the engine without a mesh:
+    the main path's requests (graphs warmed the same way), waveforms bit-equal
+    and the same launches, counted between a reset and a read."""
+    from matcha_tpu_torch.parallel import make_mesh
+    from matcha_tpu_torch.serve import ServeConfig, TTSEngine
+
+    msd, gsd = model_weights(mcfg, hcfg, seed)
+    scfg = ServeConfig(bf16=True, vocoder="hifigan", output_dtype="int16")
+    seeds = list(range(100, 100 + len(TEXTS)))
+    runs = {}
+    for name, kw in (("none", {"device": dev}), ("mesh", {"mesh": make_mesh(devices=[dev])})):
+        engine = TTSEngine(msd, mcfg, scfg, gsd, hcfg, **kw)
+        warm_engine(engine, [((len(TEXTS),), TEXTS[2]), ((1,), LONG_TEXT)])
+        reset_serving_counts(engine)
+        outs = serve_requests(engine, seeds)
+        runs[name] = {"outs": outs, "launches": dict(engine.launches), "eager": wrapper_counts()}
+        del engine
+    (wa, ia, la, _), (wb, ib, lb, _) = runs["none"]["outs"], runs["mesh"]["outs"]
+    equal = all(np.array_equal(a, b) for a, b in zip(wa + [la], wb + [lb]))
+    if not equal or runs["none"]["launches"] != runs["mesh"]["launches"] \
+            or any(runs["mesh"]["eager"].values()) or ia["budget"] != ib["budget"]:
+        raise AssertionError(f"engine over a mesh of one card: waveforms equal {equal}, "
+                             f"launches {runs['mesh']['launches']} (eager "
+                             f"{runs['mesh']['eager']}) vs {runs['none']['launches']}")
+    log(f"parallel serving: TTSEngine(mesh=) over one card, waveforms bit-equal to the engine "
+        f"without a mesh, launches {runs['mesh']['launches']} (same)")
+    return {"launches": runs["mesh"]["launches"], "bit_equal": equal,
+            "requests": [("synthesise", len(TEXTS), ib["budget"], ib["mel_lengths"]),
+                         ("lowlatency", 1, 1024, runs["mesh"]["outs"][3]["mel_lengths"])]}
+
+
+def ring_inputs(b, t, dtype, dev, gen):
+    q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen, [t - 37 * (i % 2)
+                                                                     for i in range(b)])
+    return q, k, v, bias
+
+
+def parallel_ring(dev, seed):
+    """`ring_attention` on NCCL at one rank, and the ring's per-rank computation
+    (K1 block steps with lse, merged in f32) over T cut into 4 blocks for each
+    of 4 ranks in this process, at the decoder's attention shapes of the
+    512-frame budget, f32 and bf16, against K1 over the whole T (f32 1e-5, bf16
+    2e-2). Returns the checks and the counted runs' launches by dtype and
+    shape."""
+    import torch.distributed as dist
+
+    from matcha_tpu_torch.ops.attention import attention_cuda
+    from matcha_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_local
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    checks, shapes, total = {}, [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        atol, rtol = TOL[name]
+        for b, t in PAR_RING:
+            q, k, v, bias = ring_inputs(b, t, dtype, dev, gen)
+            whole = attention_cuda(q, k, v, bias, 0.125)  # the reference, uncounted
+            ring, counts = counting(lambda: ring_attention(q, k, v, bias, dist.group.WORLD, 0.125))
+            add_counts(total, counts)
+            shapes.append({"dtype": name, "shape": [b, 4, t, 64],
+                           "launches": counts["attention_fwd"]})
+            tl = t // PAR_BLOCKS
+            cut = [tuple(a.narrow(-1 if a.dim() == 2 else 2, j * tl, tl).contiguous()
+                         for a in (k, v, bias)) for j in range(PAR_BLOCKS)]
+
+            def per_rank():
+                return torch.cat([ring_attention_local(
+                    q[:, :, r * tl:(r + 1) * tl].contiguous(),
+                    [cut[(r - i) % PAR_BLOCKS] for i in range(PAR_BLOCKS)], 0.125)
+                    for r in range(PAR_BLOCKS)], dim=2)
+
+            blocks, counts = counting(per_rank)
+            add_counts(total, counts)
+            shapes.append({"dtype": name, "shape": [b, 4, tl, 64],
+                           "launches": counts["attention_fwd"]})
+            checks[f"{name} {[b, 4, t, 64]}"] = {
+                "one_rank": max_err_within(ring, whole, atol, rtol, f"ring {name} {t}"),
+                f"{PAR_BLOCKS}_blocks": max_err_within(blocks, whole, atol, rtol,
+                                                       f"ring blocks {name} {t}")}
+    log(f"parallel ring attention against K1 over the whole T: {checks}")
+    return {"checks": checks, "shapes": shapes, "launches": total}
+
+
+def parallel_decode(dev, mcfg, hcfg, seed):
+    """`decode_fixed` with `seq_axis` over a one-rank NCCL mesh against
+    `decode_fixed` at the 512-frame budget, the 4 texts, f32, 10 steps,
+    the same z (TOL_SEQ_MEL). Returns the check and the counted launches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from matcha_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tpu_torch.parallel import Mesh
+    from matcha_tpu_torch.text import simple_text_to_sequence
+
+    msd, _ = model_weights(mcfg, hcfg, seed)
+    model = MatchaTTS(mcfg)
+    model.load_state_dict(msd)
+    model.eval().to(dev)
+    seqs = [simple_text_to_sequence(t) for t in TEXTS]
+    x = torch.zeros((len(seqs), max(map(len, seqs))), dtype=torch.int64)
+    for i, s_ in enumerate(seqs):
+        x[i, :len(s_)] = torch.tensor(s_)
+    x, xl = x.to(dev), torch.tensor([len(s_) for s_ in seqs], device=dev)
+    enc = model.encode_durations(x, xl)
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    z = torch.randn((len(seqs), PAR_DECODE_BUDGET, mcfg.n_feats), generator=gen, device=dev)
+    want = model.decode_fixed(*enc, PAR_DECODE_BUDGET, ENTRY_STEPS, z=z)["mel"]
+    mesh = Mesh(init_device_mesh("cuda", (1,), mesh_dim_names=("seq",)))
+    with mesh:
+        got, counts = counting(lambda: model.decode_fixed(*enc, PAR_DECODE_BUDGET, ENTRY_STEPS,
+                                                          z=z, seq_axis="seq")["mel"])
+    err = max_err_within(got, want, TOL_SEQ_MEL, TOL_SEQ_MEL, "seq-parallel decode mel")
+    expect = ENTRY_STEPS * sum(n for n, _ in attention_shapes(mcfg.decoder, 1))
+    if counts["attention_fwd"] != expect or counts["mrf_step"]:
+        raise AssertionError(f"seq-parallel decode launches {counts}, expected K1 {expect}")
+    log(f"parallel seq decode (one rank, NCCL) vs decode_fixed: mel max abs err {err:.3g}; "
+        f"launches {counts}")
+    return {"max_abs_err": err, "launches": counts, "batch": len(seqs)}
+
+
+def parallel_bench_scaling(root):
+    """`cli.bench_scaling --devices 1` as a user runs it (its ranks are its own
+    processes, so their launches count toward no path here)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "matcha_tpu_torch.cli.bench_scaling",
+                          "--devices", "1", "--out", str(root / "scaling.json")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench_scaling failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    table = json.loads((root / "scaling.json").read_text())
+    if [r["devices"] for r in table["results"]] != [1] or not table["results"][0][
+            "utterances_per_s"] > 0:
+        raise AssertionError(f"bench_scaling table {table}")
+    log(f"bench_scaling --devices 1: {table['results']} ({time.perf_counter() - t0:.1f} s)")
+    return table
+
+
+def parallel_path(dev, mcfg, hcfg, seed, root):
+    """The `parallel` phase: one rank on NCCL, at full width; every check
+    raises. Its launches are those of the runs with a group, a mesh or a ring
+    (the references' are not counted)."""
+    res = {"join": join_one_rank(dev)}
+    t0 = time.perf_counter()
+    res["training"] = parallel_training(dev, mcfg, seed, root)
+    res["vocoder"] = parallel_vocoder(dev, seed, root, hcfg)
+    res["serving"] = parallel_serving(dev, mcfg, hcfg, seed)
+    res["ring"] = parallel_ring(dev, seed)
+    res["decode"] = parallel_decode(dev, mcfg, hcfg, seed)
+    res["bench_scaling"] = parallel_bench_scaling(root)
+    launches = {}
+    for part in ("training", "serving", "ring", "decode"):
+        add_counts(launches, res[part]["launches"])
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"parallel path launches {launches} in {res['seconds']:.1f} s")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the phase's group; no later phase needs one
+    return res
+
+
+def time_parallel_kernels(dev, mcfg, hcfg, seed, par, step_ns, reps=20):
+    """Every shape the parallel path gave a kernel: the training runs' (K1,
+    K4, MAS), the mesh engine's (K1, K2), and K1 with lse in the ring and the
+    seq-parallel decode; each kernel against its plain version and timed."""
+    rows = time_training_kernels(dev, mcfg, seed, par["training"]["batches"], step_ns, reps,
+                                 path="parallel")
+    for name, rs in time_kernels(dev, mcfg, hcfg, seed, par["serving"]["requests"],
+                                 "parallel").items():
+        rows.setdefault(name, []).extend(rs)
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    lse_shapes = {}
+    for r in par["ring"]["shapes"]:
+        key = (r["dtype"], tuple(r["shape"]))
+        lse_shapes[key] = lse_shapes.get(key, 0) + r["launches"]
+    dec = par["decode"]
+    for n, t in attention_shapes(mcfg.decoder, PAR_DECODE_BUDGET):
+        key = ("float32", (dec["batch"], mcfg.decoder.num_heads, t,
+                           mcfg.decoder.attention_head_dim))
+        lse_shapes[key] = lse_shapes.get(key, 0) + n * ENTRY_STEPS
+    lse_rows = []
+    for (name, (b, h, t, d)), count in lse_shapes.items():
+        dtype = getattr(torch, name)
+        q, k, v, bias = attention_inputs(b, h, t, d, dtype, dev, gen,
+                                         [t - 37 * (i % 2) for i in range(b)])
+        lse_rows.append({"path": "parallel", "dtype": name, "peak_flops": PEAK_FLOPS[dtype],
+                         "shape": [b, h, t, d], "count": count, "launches": count, "lse": True,
+                         **attention_fwd_row(q, k, v, bias, d ** -0.5, True, reps)})
+    log_rows({"attention_fwd": lse_rows})
+    rows["attention_fwd"].extend(lse_rows)
+    return rows
+
+
 def main_path_requests(engine):
     """(name, batch, budget, mel lengths) of the two decodes the main path ran."""
     syn, ll = engine["synthesise"], engine["lowlatency"]
@@ -2567,6 +2966,7 @@ def main(argv=None) -> int:
         train_graphs = train_graph_checks(dev, mcfg, args.seed, Path(tmp))
         vocoder = vocoder_train_path(dev, mcfg, args.seed, Path(tmp), hcfg)
         entry = entry_points(dev, mcfg, hcfg, args.seed, Path(tmp))
+        par = parallel_path(dev, mcfg, hcfg, args.seed, Path(tmp))
         e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
                "golden": golden_on_card(dev),
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
@@ -2598,6 +2998,8 @@ def main(argv=None) -> int:
                                          vocoder_calls=report["frames"].count(frames)).items():
                 rows[name].extend(rs)
         rows["mas"].extend(time_bench_mas(dev, step_ns))
+        for name, rs in time_parallel_kernels(dev, mcfg, hcfg, args.seed, par, step_ns).items():
+            rows[name].extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
@@ -2623,17 +3025,25 @@ def main(argv=None) -> int:
                    f"batch 1, f32, eager")
     bench_work = (f"cli.bench_mas at {', '.join(entry['bench_mas']['table'])}: a check, a "
                   f"warm-up and {entry['bench_mas']['runs']} timed calls each")
+    par_work = (f"one rank on NCCL: Trainer.fit at K = 2 (fp32, batch 16, the {BUCKET_ITEMS}-item "
+                f"bucket set, one epoch) on a data group and with the tensor-parallel path at model 1; "
+                f"TTSEngine(mesh=) over the card (the serve path's requests); ring attention "
+                f"at {list(PAR_RING)} (B, T), f32 and bf16, at one rank and in {PAR_BLOCKS} "
+                f"blocks a rank for {PAR_BLOCKS} ranks in one process; seq-parallel "
+                f"decode_fixed at one rank, 4 texts at budget {PAR_DECODE_BUDGET}, f32, "
+                f"{ENTRY_STEPS} steps")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
                                     "train": training["launches"],
                                     "vocoder": vocoder["launches"],
                                     "generate": generated["hifigan"]["launches"],
                                     "generate_gl": generated["griffin_lim"]["launches"],
                                     "vocoder_report": report["launches"],
-                                    "bench_mas": {"mas": entry["bench_mas"]["launches"]}},
+                                    "bench_mas": {"mas": entry["bench_mas"]["launches"]},
+                                    "parallel": par["launches"]},
                        {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work,
                         "vocoder": vocoder_work, "generate": generate_work,
                         "generate_gl": generate_gl_work, "vocoder_report": report_work,
-                        "bench_mas": bench_work})
+                        "bench_mas": bench_work, "parallel": par_work})
     for k in line["kernels"]:
         if k["name"] == "mas":
             k["chain_step_ns"] = step_ns
@@ -2643,7 +3053,8 @@ def main(argv=None) -> int:
         {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
          "chain_step_ns": step_ns, "engine": engine, "engine_griffin_lim": engine_gl,
          "training": training, "train_graphs": train_graphs, "vocoder_training": vocoder,
-         "entry_points": entry,
+         "entry_points": entry, "parallel": {k: v for k, v in par.items() if k != "training"},
+         "parallel_training": {k: v for k, v in par["training"].items() if k != "batches"},
          "e2e": e2e, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
         indent=1))

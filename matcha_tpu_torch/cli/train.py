@@ -4,7 +4,7 @@
         [--batch-size 16] [--max-epochs 1000] [--ckpt-dir checkpoints] [--no-resume]
         [--precision fp32|bf16] [--out-size N] [--ckpt-every N]
         [--steps-per-dispatch K] [--mas-impl auto|pallas|ref] [--profile DIR]
-        [--device cuda|cpu]
+        [--tp N] [--device cuda|cpu]
 
 Resumes from the newest checkpoint in `--ckpt-dir` unless `--no-resume`.
 Data: an LJSpeech-format directory (`--data-dir`, the default: `metadata.csv`
@@ -12,6 +12,12 @@ and `wavs/`; `train.txt` and `val.txt` are written there on first use), the
 synthetic dataset (`--synthetic`), or `--tiny`, a reduced-width model on a
 small synthetic set. On the card, K = `--steps-per-dispatch` micro-steps run
 as one CUDA graph replay.
+
+Several cards: `torchrun --nproc_per_node N -m matcha_tpu_torch.cli.train ...`
+trains data-parallel over N ranks, one a card (NCCL), each on its cut of
+every global batch of N x `--batch-size`; `--tp M` also shards the Megatron
+pairs over M of them (a (N / M, M) mesh; M <= 2 at `MatchaConfig()`, whose
+encoder has 2 heads). With `--device cpu` the same runs on gloo ranks.
 """
 
 import argparse
@@ -46,9 +52,18 @@ def main(argv=None):
                          "the trajectory does not depend on K")
     ap.add_argument("--ckpt-every", type=int, default=1,
                     help="checkpoint every N epochs (the last epoch always)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel size: ranks of the mesh's model axis (under torchrun)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
+
+    from matcha_tpu_torch.parallel import init_distributed, make_mesh, world
+
+    init_distributed(args.device)  # before anything touches the card
+    if args.tp > 1 and world() == 1:
+        ap.error("--tp > 1 needs several ranks: launch under torchrun")
+    mesh = make_mesh(model=args.tp if args.tp > 1 else None) if world() > 1 else None
 
     from matcha_tpu_torch.data.dataset import DataConfig, SyntheticDataset, TextMelDataset
     from matcha_tpu_torch.data.ljspeech import process_csv
@@ -84,7 +99,7 @@ def main(argv=None):
                     profile_dir=args.profile, out_size=args.out_size,
                     steps_per_dispatch=args.steps_per_dispatch,
                     ckpt_every_epochs=args.ckpt_every),
-        data_cfg, device=args.device)
+        data_cfg, device=args.device, mesh=mesh)
     step = trainer.fit(train_ds, val_ds, max_epochs=args.max_epochs, resume=not args.no_resume)
     print(f"trained to step {step}; checkpoints in {trainer.checkpoints.root}")
 

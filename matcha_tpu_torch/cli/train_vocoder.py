@@ -12,6 +12,10 @@ the card, K = `--steps-per-dispatch` GAN steps run as one CUDA graph replay.
 `--tiny`: a reduced generator and discriminators on 8 synthetic items.
 `load_generator_for_inference(ckpt_dir)` (`train/vocoder.py`) folds a
 trained generator for `TTSEngine(vocoder_params=...)`.
+
+Several cards: `torchrun --nproc_per_node N -m matcha_tpu_torch.cli.train_vocoder
+...` trains data-parallel over N ranks (NCCL; gloo with `--device cpu`), a
+global batch of N x `--batch-size` segments a step.
 """
 
 import argparse
@@ -37,6 +41,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
+
+    from matcha_tpu_torch.parallel import init_distributed, make_mesh, world
+
+    init_distributed(args.device)  # before anything touches the card
+    mesh = make_mesh(model=None) if world() > 1 else None
 
     from matcha_tpu_torch.data.audio_dataset import (
         AudioDataConfig,
@@ -72,7 +81,7 @@ def main(argv=None):
                                      steps_per_dispatch=args.steps_per_dispatch,
                                      ckpt_every_epochs=args.ckpt_every),
         data_cfg=AudioDataConfig(batch_size=args.batch_size, segment_size=args.segment_size),
-        device=args.device, **kwargs)
+        device=args.device, mesh=mesh, **kwargs)
     step = trainer.fit(train_ds, val_ds, max_epochs=args.epochs, resume=not args.no_resume)
     print(f"trained to step {step}; checkpoints in {trainer.checkpoints.root}")
 

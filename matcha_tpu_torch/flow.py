@@ -13,6 +13,8 @@ from typing import Callable, Optional
 
 import torch
 
+from matcha_tpu_torch.parallel.mesh import batch_sum, draw_rows
+
 SIGMA_MIN = 1e-4
 
 
@@ -23,18 +25,23 @@ def cfm_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor, mu: torc
 
     estimator: (x, mask, mu, t) -> velocity with x, mu (B, T, C), mask (B, T, 1)
     and t (B,). `t` (B,) and `z` (shape of x1) are injected, or drawn from
-    `generator`: t first, then z. Returns (loss, phi_t).
+    `generator`: t first, then z, at the global batch's shape under
+    `parallel.batch_rows`, whose data group also sums the normaliser.
+    Returns (loss, phi_t).
     """
     b = x1.shape[0]
+    dev, dt = x1.device, x1.dtype
     if t is None:
-        t = torch.rand((b,), generator=generator, device=x1.device, dtype=x1.dtype)
+        t = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev, dtype=dt), (b,))
     if z is None:
-        z = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        z = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev, dtype=dt),
+                      x1.shape)
     t = t.to(device=x1.device, dtype=x1.dtype).reshape(b, 1, 1)
     phi_t = (1 - (1 - sigma_min) * t) * z + t * x1
     u_target = x1 - (1 - sigma_min) * z
     u_pred = estimator(phi_t, mask, mu, t[:, 0, 0])
-    loss = torch.sum((u_pred - u_target) ** 2 * mask) / (torch.sum(mask) * x1.shape[-1])
+    loss = torch.sum((u_pred - u_target) ** 2 * mask) / (batch_sum(torch.sum(mask))
+                                                          * x1.shape[-1])
     return loss, phi_t
 
 

@@ -9,6 +9,12 @@ State-dict keys are the reference's (`encoder.*`, `decoder.estimator.*`), so
 the reference's checkpoints and the test fixtures load directly. Public
 methods keep the JAX package's layouts: `z` and `mel` are (B, T, n_feats).
 
+Several ranks (`parallel/`): under `parallel.batch_rows` a rank's losses
+are its share of the global batch's (normalisers summed over the data
+group, noise drawn at the global shape and cut to its rows); `decode_fixed`
+with `seq_axis` splits the U-Net's frames over that axis of the ambient
+mesh.
+
 Reference quirks kept: `length_scale` multiplies after `ceil`, the
 duration cumsum and path are built in f32 whatever the activation dtype, and
 the prior loss keeps +log(2 pi) inside its masked sum.
@@ -28,6 +34,7 @@ from matcha_tpu_torch.nn.decoder import Decoder, DecoderConfig
 from matcha_tpu_torch.nn.encoder import EncoderConfig, TextEncoder
 from matcha_tpu_torch.ops.mas import maximum_path
 from matcha_tpu_torch.ops.masks import duration_loss, generate_path, sequence_mask
+from matcha_tpu_torch.parallel.mesh import batch_sum, current_mesh, draw_rows
 
 
 @dataclass(frozen=True)
@@ -108,7 +115,8 @@ class MatchaTTS(nn.Module):
         if out_size is not None and out_size < y.shape[1]:
             max_offset = torch.clamp(y_lengths - out_size, min=0)
             if offsets is None:
-                u = torch.rand((y.shape[0],), generator=generator, device=y.device)
+                u = draw_rows(lambda s: torch.rand(s, generator=generator, device=y.device),
+                              (y.shape[0],))
                 offsets = torch.floor(u * torch.clamp(max_offset, min=1)).to(torch.int64)
             offsets = torch.minimum(offsets.to(device=y.device, dtype=torch.int64), max_offset)
             window = offsets[:, None] + torch.arange(out_size, device=y.device)  # (B, out)
@@ -138,7 +146,7 @@ class MatchaTTS(nn.Module):
 
         if cfg.prior_loss:
             prior = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi)) * y_mask)
-            prior = prior / (torch.sum(y_mask) * cfg.n_feats)
+            prior = prior / (batch_sum(torch.sum(y_mask)) * cfg.n_feats)
         else:
             prior = torch.zeros((), device=y.device)
         return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff, "attn": attn}
@@ -157,12 +165,20 @@ class MatchaTTS(nn.Module):
     def decode_fixed(self, mu_x, w_ceil, x_mask, y_lengths, y_max_length: int,
                      n_timesteps: int, temperature: float = 1.0,
                      z: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     seq_axis: Optional[str] = None):
         """Stage 2: alignment + ODE decode at a static frame budget `y_max_length`.
 
         `z`: optional (B, y_max_length, n_feats) pre-temperature noise; else it
         is drawn from `generator`. `y_max_length` must be a multiple of
         2**(len(decoder.channels) - 1).
+
+        `seq_axis`: an axis of the ambient mesh (`with mesh:`) whose n ranks
+        each decode a block of y_max_length / n frames (`Decoder.forward`'s
+        `seq`, ring attention in its transformer blocks); z is drawn whole and
+        cut, and the mel is gathered, so every rank returns what the call
+        without `seq_axis` returns. y_max_length must then be a multiple of
+        n * 2**(len(decoder.channels) - 1).
         """
         cfg = self.cfg
         y_lengths = torch.clamp(y_lengths, max=y_max_length)
@@ -174,12 +190,42 @@ class MatchaTTS(nn.Module):
         est = self.decoder.estimator
         if z is not None:
             z = z.transpose(1, 2)
-        dec = sample_cfm(est, mu_y.transpose(1, 2), y_mask.transpose(1, 2), n_timesteps,
-                         temperature, solver=cfg.solver, z=z, generator=generator)
+        mu_c, mask_c = mu_y.transpose(1, 2), y_mask.transpose(1, 2)
+        if seq_axis is None:
+            dec = sample_cfm(est, mu_c, mask_c, n_timesteps, temperature, solver=cfg.solver,
+                             z=z, generator=generator)
+        else:
+            dec = self._decode_seq(est, mu_c, mask_c, n_timesteps, temperature, z, generator,
+                                   current_mesh().group(seq_axis))
         dec = dec.transpose(1, 2) * y_mask
         mel = dec * cfg.mel_std + cfg.mel_mean
         return {"encoder_outputs": mu_y, "decoder_outputs": dec, "mel": mel,
                 "attn": attn, "mel_lengths": y_lengths}
+
+    def _decode_seq(self, est, mu, mask, n_timesteps, temperature, z, generator, group):
+        """sample_cfm over (B, C, T) mu and mask with the U-Net split over the
+        ranks of `group`, each holding T / n frames; the whole result on every
+        rank."""
+        import torch.distributed as dist
+
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        t = mu.shape[-1]
+        factor = n * 2 ** (len(self.cfg.decoder.channels) - 1)
+        if t % factor:
+            raise ValueError(f"y_max_length {t} must be a multiple of {factor} "
+                             f"({n} sequence ranks x the U-Net's factor)")
+        tl = t // n
+        if z is None:
+            z = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=torch.float32)
+
+        def cut(a):
+            return a[:, :, r * tl: (r + 1) * tl]
+
+        dec = sample_cfm(lambda x, m, mu_, tt: est(x, mask, mu_, tt, seq=group), cut(mu),
+                         cut(mask), n_timesteps, temperature, solver=self.cfg.solver, z=cut(z))
+        parts = [torch.empty_like(dec) for _ in range(n)]
+        dist.all_gather(parts, dec.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
 
     @torch.no_grad()
     def synthesise_fixed(self, x, x_lengths, y_max_length: int, n_timesteps: int,

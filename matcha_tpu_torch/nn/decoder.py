@@ -21,6 +21,16 @@ reruns the block's attention forward, K1 included. The transformer blocks'
 dropout masks are drawn before the checkpoint and passed in, and a block
 runs on the parameter tensors of its first run (the bf16 view of
 mixed-precision training), so the recompute repeats the first run exactly.
+
+Sequence parallelism (`forward(..., seq=group)`, decoding only): each rank of
+`seq` holds its consecutive block of T / n frames of x and mu, and the
+U-Net, which JAX's partitioner splits by itself under a `seq` axis, is split
+by hand (`_SeqShard`): each k = 3 conv, the stride-2 downsample and the
+k = 4 transposed upsample exchange one halo frame with their neighbours
+(zeros at the global edges); each GroupNorm sums its f32 sum and sum of
+squares over the group; the transformer blocks run ring attention; and the
+masks, which the caller passes whole, are truncated and repeated whole on
+every rank, then cut to this rank's frames.
 """
 
 import functools
@@ -29,6 +39,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
@@ -86,8 +97,11 @@ class Block1D(nn.Module):
         self.block = nn.Sequential(nn.Conv1d(in_ch, out_ch, 3, padding=1),
                                    nn.GroupNorm(8, out_ch, eps=1e-5), nn.Mish())
 
-    def forward(self, x, mask):
-        return self.block(x * mask) * mask
+    def forward(self, x, mask, seq=None):
+        if seq is None:
+            return self.block(x * mask) * mask
+        conv, norm, act = self.block
+        return act(seq.group_norm(norm, seq.conv(conv, x * mask))) * mask
 
 
 class ResnetBlock1D(nn.Module):
@@ -100,9 +114,9 @@ class ResnetBlock1D(nn.Module):
         self.block2 = Block1D(out_ch, out_ch)
         self.res_conv = nn.Conv1d(in_ch, out_ch, 1)
 
-    def forward(self, x, mask, t_emb):
-        h = self.block1(x, mask) + self.mlp(t_emb)[:, :, None]
-        h = self.block2(h, mask)
+    def forward(self, x, mask, t_emb, seq=None):
+        h = self.block1(x, mask, seq) + self.mlp(t_emb)[:, :, None]
+        h = self.block2(h, mask, seq)
         return h + self.res_conv(x * mask)
 
 
@@ -157,10 +171,61 @@ def _transformers(cfg: DecoderConfig, dim: int) -> nn.ModuleList:
         for _ in range(cfg.n_blocks)])
 
 
-def _run_transformers(blocks, x, mask, remat=None):
+class _SeqShard:
+    """This rank's block of frames of a sequence-parallel decode over `group`."""
+
+    def __init__(self, group):
+        self.group = group
+        self.n, self.r = dist.get_world_size(group), dist.get_rank(group)
+
+    def local(self, m):
+        """This rank's frames of a whole (B, 1, T) mask."""
+        t = m.shape[-1] // self.n
+        return m[:, :, self.r * t: (self.r + 1) * t]
+
+    def _halo(self, x):
+        """x (B, C, T_local) with its neighbours' edge frames on both sides
+        (zeros at the global edges): (B, C, T_local + 2)."""
+        edges = torch.stack([x[:, :, 0], x[:, :, -1]], dim=-1).contiguous()
+        parts = [torch.empty_like(edges) for _ in range(self.n)]
+        dist.all_gather(parts, edges, group=self.group)
+        zero = torch.zeros_like(edges[:, :, :1])
+        left = parts[self.r - 1][:, :, 1:] if self.r > 0 else zero
+        right = parts[self.r + 1][:, :, :1] if self.r < self.n - 1 else zero
+        return torch.cat([left, x, right], dim=-1)
+
+    def conv(self, layer, x):
+        """`layer` (a conv of the U-Net, or a Downsample1D / Upsample1D) on
+        this rank's frames, as on the whole sequence."""
+        layer = getattr(layer, "conv", layer)
+        if layer.kernel_size[0] == 1:
+            return layer(x)
+        if isinstance(layer, nn.ConvTranspose1d):  # k 4, stride 2, padding 1
+            y = F.conv_transpose1d(self._halo(x), layer.weight, layer.bias, layer.stride)
+            return y[:, :, 3: 3 + 2 * x.shape[-1]]
+        # k 3, padding 1, stride 1 or 2
+        return F.conv1d(self._halo(x), layer.weight, layer.bias, layer.stride)
+
+    def group_norm(self, norm: nn.GroupNorm, x):
+        """`norm` over the whole sequence: per (batch, group) sums over the group."""
+        b, c, t = x.shape
+        xf = x.float().reshape(b, norm.num_groups, -1)
+        stats = torch.stack([xf.sum(-1), (xf * xf).sum(-1)])
+        dist.all_reduce(stats, group=self.group)
+        count = xf.shape[-1] * self.n
+        mean = stats[0] / count
+        var = stats[1] / count - mean * mean
+        y = (xf - mean[..., None]) * torch.rsqrt(var + norm.eps)[..., None]
+        return (y.reshape(b, c, t) * norm.weight.float()[:, None]
+                + norm.bias.float()[:, None]).to(x.dtype)
+
+
+def _run_transformers(blocks, x, mask, remat=None, seq=None):
     h = x.transpose(1, 2)
     for blk in blocks:
-        if remat is None:
+        if seq is not None:
+            h = blk(h, mask[:, 0, :], seq=seq.group)
+        elif remat is None:
             h = blk(h, mask[:, 0, :])
         else:
             h = _checkpointed(blk, remat, h, mask[:, 0, :], *blk.dropout_masks(h))
@@ -203,46 +268,61 @@ class Decoder(nn.Module):
         self.final_norm = nn.GroupNorm(8, ch[0], eps=1e-5)
         self.final_proj = nn.Conv1d(ch[0], cfg.out_channels, 1)
 
-    def forward(self, x, mask, mu, t):
+    def forward(self, x, mask, mu, t, seq=None):
         """x, mu: (B, n_feats, T); mask: (B, 1, T); t: (B,) f32 flow time.
 
         Returns the (B, out_channels, T) velocity. T must be a multiple of
-        2**(len(channels) - 1).
+        2**(len(channels) - 1). With `seq` (a process group of n ranks, no
+        gradients), x and mu are this rank's (B, n_feats, T / n) block of
+        frames, mask stays whole (B, 1, T), and so does T's rule for T / n.
         """
         # sinusoidal angles in f32; the embedding then joins the activation dtype
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, self.cfg.in_channels).to(x.dtype))
         x = torch.cat([x, mu], dim=1)
 
         remat = self.cfg.remat if torch.is_grad_enabled() else None
+        sp = None if seq is None else _SeqShard(seq)
+        n = 1 if sp is None else sp.n
+
+        def local(m):  # this rank's frames of a whole mask
+            return m if sp is None else sp.local(m)
+
+        def conv(layer, h):
+            return layer(h) if sp is None else sp.conv(layer, h)
 
         def resnet(block, h, m):
+            if sp is not None:
+                return block(h, m, t_emb, sp)
             return block(h, m, t_emb) if remat is None else _checkpointed(block, remat, h, m, t_emb)
 
-        hiddens, masks = [], [mask]
+        hiddens, masks = [], [mask]  # whole masks
         for i, (res, blocks, down) in enumerate(self.Downsampling_Blocks):
-            m = masks[-1]
-            x = _run_transformers(blocks, resnet(res, x, m), m, remat)
+            m = local(masks[-1])
+            x = _run_transformers(blocks, resnet(res, x, m), m, remat, sp)
             hiddens.append(x)
-            x = down(x * m)
-            masks.append(m[:, :, : x.shape[-1]])  # truncation (identity on the last level)
+            x = conv(down, x * m)
+            # truncation (identity on the last level)
+            masks.append(masks[-1][:, :, : x.shape[-1] * n])
         masks = masks[:-1]
 
-        m = masks[-1]
+        m = local(masks[-1])
         for res, blocks in self.Mid_Blocks:
-            x = _run_transformers(blocks, resnet(res, x, m), m, remat)
+            x = _run_transformers(blocks, resnet(res, x, m), m, remat, sp)
 
         for res, blocks, up in self.Upsampling_Blocks:
-            m = masks.pop()
+            whole = masks.pop()
+            m = local(whole)
             hidden = hiddens.pop()
             if x.shape[-1] != hidden.shape[-1]:
                 raise ValueError("skip-join length mismatch: pad the mel length with "
                                  "fix_len_compatibility")
             x = _run_transformers(blocks, resnet(res, torch.cat([x, hidden], dim=1), m), m,
-                                  remat)
-            x = up(x * m)
+                                  remat, sp)
+            x = conv(up, x * m)
             if x.shape[-1] != m.shape[-1]:  # nearest re-expansion after an upsample
-                m = m.repeat_interleave(x.shape[-1] // m.shape[-1], dim=-1)
+                whole = whole.repeat_interleave(x.shape[-1] // m.shape[-1], dim=-1)
+                m = local(whole)
 
-        x = self.final_conv(x * m)
-        x = F.mish(self.final_norm(x))
-        return self.final_proj(x * m) * mask
+        x = conv(self.final_conv, x * m)
+        x = F.mish(self.final_norm(x) if sp is None else sp.group_norm(self.final_norm, x))
+        return self.final_proj(x * m) * local(mask)

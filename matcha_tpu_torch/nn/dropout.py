@@ -14,6 +14,12 @@ the same masks eagerly and in a replay.
 blocks draw theirs before an activation checkpoint, so that a recompute
 reuses them (`torch.utils.checkpoint` restores only the default generators).
 A subclass of `nn.Dropout`: no parameters, so state-dict keys are unchanged.
+
+Several ranks (`parallel/`): a mask is drawn at the global batch's shape and
+cut to this rank's rows (`draw_rows` under `batch_rows`), and a mask on a
+tensor-parallel hidden at full width and cut to this rank's block (`split`,
+set by `TensorParallel.shard`), so the masks do not depend on how the work
+is split.
 """
 
 import contextlib
@@ -22,6 +28,8 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from matcha_tpu_torch.parallel.mesh import draw_rows
 
 _generator: contextvars.ContextVar = contextvars.ContextVar("dropout_generator", default=None)
 
@@ -40,12 +48,16 @@ class Dropout(nn.Dropout):
     """Zero each element with probability p and scale the rest by 1 / (1 - p),
     in `train()` only."""
 
+    # (dim, index, count): this rank's block of a tensor-parallel dimension
+    split = None
+
     def keep_mask(self, shape, device, dtype=torch.float32) -> Optional[torch.Tensor]:
         """A 0/1 mask of `shape` (1 = kept), or None when dropout is off."""
         if not self.training or self.p == 0:
             return None
-        return torch.empty(shape, device=device, dtype=dtype).bernoulli_(
-            1.0 - self.p, generator=_generator.get())
+        gen = _generator.get()
+        return draw_rows(lambda full: torch.empty(full, device=device, dtype=dtype).bernoulli_(
+            1.0 - self.p, generator=gen), shape, self.split)
 
     def forward(self, x, keep: Optional[torch.Tensor] = None):
         if not self.training or self.p == 0:

@@ -12,6 +12,10 @@ ConvFFN convolutions and on both residual branches (`p_dropout`), and after
 both duration-predictor blocks (`dp_p_dropout`). It is active in `train()`
 only and draws from the generator `nn.dropout.dropout_generator` sets; the
 prenet's residual projection starts at zero, as the reference's.
+
+Tensor parallelism (`parallel/sharding.py`): with `tp_group` set, the
+attention runs its block of heads and the ConvFFN its block of filter
+channels, and each sums its output projection over the group.
 """
 
 import math
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from matcha_tpu_torch.nn.dropout import Dropout
 from matcha_tpu_torch.nn.rope import apply_rope
 from matcha_tpu_torch.ops.masks import sequence_mask
+from matcha_tpu_torch.parallel.sharding import copy_to_group, row_parallel
 
 
 @dataclass(frozen=True)
@@ -92,6 +97,8 @@ class DurationPredictor(nn.Module):
 class RoPEMultiHeadAttention(nn.Module):
     """Self-attention with 1x1-conv projections and RoPE on half of each head."""
 
+    tp_group = None  # the model group, under tensor parallelism
+
     def __init__(self, channels: int, n_heads: int, p_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
@@ -103,10 +110,12 @@ class RoPEMultiHeadAttention(nn.Module):
         self.output_conv = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x, attn_mask):
-        b, c, t = x.shape
+        b, _, t = x.shape
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
 
-        def heads(a):  # (B, C, T) -> (B, H, T, Dh)
-            return a.view(b, self.n_heads, self.head_dim, t).transpose(2, 3)
+        def heads(a):  # (B, C, T) -> (B, H, T, Dh), H this rank's heads
+            return a.view(b, -1, self.head_dim, t).transpose(2, 3)
 
         q, k, v = heads(self.query_conv(x)), heads(self.key_conv(x)), heads(self.value_conv(x))
         rope_dim = int(self.head_dim * 0.5)
@@ -114,11 +123,15 @@ class RoPEMultiHeadAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(self.head_dim)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
         probs = self.dropout(torch.softmax(scores, dim=-1))
-        out = torch.matmul(probs, v).transpose(2, 3).reshape(b, c, t)
+        out = torch.matmul(probs, v).transpose(2, 3).reshape(b, -1, t)
+        if self.tp_group is not None:
+            return row_parallel(self.output_conv, out, self.tp_group)
         return self.output_conv(out)
 
 
 class ConvFFN(nn.Module):
+    tp_group = None  # the model group, under tensor parallelism
+
     def __init__(self, channels: int, filter_channels: int, kernel_size: int,
                  p_dropout: float = 0.0):
         super().__init__()
@@ -130,7 +143,11 @@ class ConvFFN(nn.Module):
         self.dropout = Dropout(p_dropout)
 
     def forward(self, x, mask):
-        return self.dropout(self.conv_net(x * mask)) * mask
+        if self.tp_group is None:
+            return self.dropout(self.conv_net(x * mask)) * mask
+        net = self.conv_net
+        h = net[2](net[1](net[0](copy_to_group(x * mask, self.tp_group))))
+        return self.dropout(row_parallel(net[3], h, self.tp_group)) * mask
 
 
 class TransformerEncoder(nn.Module):

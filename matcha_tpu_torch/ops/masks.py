@@ -5,6 +5,8 @@ import math
 
 import torch
 
+from matcha_tpu_torch.parallel.mesh import batch_sum
+
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """(B,) lengths -> (B, max_length) bool mask, True at valid positions."""
@@ -33,8 +35,9 @@ def generate_path(durations: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def duration_loss(logw: torch.Tensor, logw_target: torch.Tensor, lengths: torch.Tensor):
-    """Sum of squared log-duration errors over the total token count."""
-    return torch.sum((logw - logw_target) ** 2) / torch.sum(lengths)
+    """Sum of squared log-duration errors over the total token count (of the
+    global batch, under `parallel.batch_rows`)."""
+    return torch.sum((logw - logw_target) ** 2) / batch_sum(torch.sum(lengths))
 
 
 def _stat(value, like: torch.Tensor) -> torch.Tensor:

@@ -46,12 +46,22 @@ Stage B, a delivery thread, waits on the event outside the engine lock,
 slices and delivers. With one configured budget, stage A reads nothing back
 (zero-sync) and truncation is read from the packed tail in stage B.
 
+`mesh=` (`parallel.make_mesh(devices=...)`, one process over its local
+cards): the weights are copied to each card, and each card has its own
+stages, graphs and pool. A request batch is padded to a multiple of the card
+count by repeating row 0 and split batch-wise; each card replays its stage on
+its block of rows, on its own stream, and the outputs are gathered. The
+noise and phase are drawn for the batch, as without a mesh, then split, so
+the waveforms do not depend on the card count. The batching worker and
+`synthesise_lowlatency` (whose one row runs on the first card, the padding
+rows on the others) take the mesh alike.
+
 The JAX engine's TPU-measured selection knobs (`attn_impl`,
 `attn_pallas_min_budget`, `vocoder_resblock_impl`) are not ported: on the card
-the port always runs its kernels. `mesh=` (data-parallel serving over cards)
-is not ported.
+the port always runs its kernels.
 """
 
+import copy
 import functools
 import queue
 import threading
@@ -171,15 +181,69 @@ class _Graph:
         return self.outputs
 
 
+class _Events(list):
+    """CUDA events, one a device, waited for together."""
+
+    def synchronize(self):
+        for e in self:
+            e.synchronize()
+
+
+class _Replica:
+    """The engine's modules on one device, with that device's stages (a
+    `_Graph` a stage key on a card, `_Eager` on the CPU) and graph pool."""
+
+    def __init__(self, cfg: "ServeConfig", model, vocoder, device: torch.device):
+        self.cfg, self.model, self.vocoder, self.device = cfg, model, vocoder, device
+        self.stages = {}
+        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+
+    def encode(self, x, xl):
+        return self.model.encode_durations(x, xl, self.cfg.length_scale)
+
+    def _vocode(self, mel, phase):
+        if self.vocoder is not None:
+            return torch.clamp(self.vocoder(mel).float(), -1.0, 1.0)
+        return mel_to_audio(self.cfg.mel_cfg, mel.transpose(1, 2), phase=phase)
+
+    def decode(self, budget: int, mu_x, w_ceil, x_mask, y_lengths, z, phase=None):
+        """Decode + vocode + pack: (B, budget*hop + 2) rows laid out as
+        [waveform..., mel length, predicted length] in the wire dtype."""
+        out = self.model.decode_fixed(mu_x, w_ceil, x_mask, y_lengths, budget,
+                                      self.cfg.n_timesteps, self.cfg.temperature, z=z)
+        wav = self._vocode(out["mel"], phase)
+        if self.cfg.output_dtype == "int16":
+            wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        tails = torch.stack([out["mel_lengths"], torch.clamp(y_lengths, max=32767)], dim=1)
+        return torch.cat([wav, tails.to(wav.dtype)], dim=1)
+
+    def synth(self, budget: int, x, xl, z, phase=None):
+        """The low-latency stage: encode and decode at a fixed budget."""
+        return self.decode(budget, *self.encode(x, xl), z, phase)
+
+    def run(self, key, fn, *args):
+        """Stage `key` on `args`: on a card its graph replays, captured first
+        if it is new; its outputs must be copied out before the next `run`.
+        Returns (outputs, the kernel launches it made)."""
+        stage = self.stages.get(key)
+        if stage is None:
+            stage = self.stages[key] = (_Eager(fn) if self.device.type == "cpu"
+                                        else _Graph(fn, args, self.device, self.pool))
+        return stage.run(*args), stage.launches
+
+
 class TTSEngine:
-    """Batched text -> waveform synthesis on one device."""
+    """Batched text -> waveform synthesis on one device, or batch-parallel over
+    the devices of `mesh`."""
 
     def __init__(self, params, model_cfg: MatchaConfig = MatchaConfig(),
                  cfg: ServeConfig = ServeConfig(), vocoder_params=None,
-                 hifigan_cfg: Optional[HiFiGANConfig] = None, device=None, seed: int = 0):
+                 hifigan_cfg: Optional[HiFiGANConfig] = None, device=None, seed: int = 0,
+                 mesh=None):
         """`params`: a MatchaTTS state dict; `vocoder_params`: a HiFi-GAN
         generator state dict, plain or weight-normed (hifigan only).
-        `device=None` is the card."""
+        `device=None` is the card; `mesh`, a device mesh
+        (`parallel.make_mesh(devices=...)`), serves over its devices instead."""
         if cfg.vocoder not in ("griffin_lim", "hifigan"):
             raise ValueError(f"unknown vocoder {cfg.vocoder!r}")
         if cfg.vocoder == "hifigan" and vocoder_params is None:
@@ -190,25 +254,32 @@ class TTSEngine:
         if cfg.output_dtype not in ("float32", "int16"):
             raise ValueError(f"output_dtype must be 'float32' or 'int16', got {cfg.output_dtype!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        devices = [resolve_device(device)] if mesh is None else list(mesh.devices)
+        for d in devices:
+            resolve_device(d)
+        self.device = devices[0]
+        if any(d.type == "cuda" for d in devices):
             apply_tf32_policy()
-        self.model = MatchaTTS(model_cfg)
-        self.model.load_state_dict(params)
-        modules = [self.model]
-        self.vocoder = None
+        model = MatchaTTS(model_cfg)
+        model.load_state_dict(params)
+        vocoder = None
         if cfg.vocoder == "hifigan":
-            self.vocoder = Generator(hifigan_cfg or HiFiGANConfig())
-            self.vocoder.load_state_dict(vocoder_params)
-            modules.append(self.vocoder)
-        for m in modules:
-            m.eval().to(self.device)
-            if cfg.bf16:
-                bf16_serving(m)
+            vocoder = Generator(hifigan_cfg or HiFiGANConfig())
+            vocoder.load_state_dict(vocoder_params)
+        self._replicas = []
+        for i, dev in enumerate(devices):  # the first device takes the modules, the others copies
+            mods = [model, vocoder] if i == 0 else [copy.deepcopy(model), copy.deepcopy(vocoder)]
+            for m in mods:
+                if m is not None:
+                    m.eval().to(dev)
+                    if cfg.bf16:
+                        bf16_serving(m)
+            self._replicas.append(_Replica(cfg, *mods, dev))
+        first = self._replicas[0]
+        self.model, self.vocoder = first.model, first.vocoder
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
-        # stage key -> _Graph on the card, _Eager on the CPU
-        self._stages = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        # the first device's stage key -> _Graph on the card, _Eager on the CPU
+        self._stages, self._pool = first.stages, first.pool
         # kernel launches made by this engine's graph replays, by kernel
         self.launches = {name: 0 for name in COUNTED}
         # serializes the engine rng, captures and each request group's device sequence
@@ -221,56 +292,63 @@ class TTSEngine:
 
     # ----------------------------------------------------------- stages
     def _encode(self, x, xl):
-        return self.model.encode_durations(x, xl, self.cfg.length_scale)
+        return self._replicas[0].encode(x, xl)
 
-    def _vocode(self, mel, phase):
-        if self.vocoder is not None:
-            return torch.clamp(self.vocoder(mel).float(), -1.0, 1.0)
-        return mel_to_audio(self.cfg.mel_cfg, mel.transpose(1, 2), phase=phase)
+    def _decode(self, budget: int, *args):
+        return self._replicas[0].decode(budget, *args)
 
-    def _decode(self, budget: int, mu_x, w_ceil, x_mask, y_lengths, z, phase=None):
-        """Decode + vocode + pack: (B, budget*hop + 2) rows laid out as
-        [waveform..., mel length, predicted length] in the wire dtype."""
-        out = self.model.decode_fixed(mu_x, w_ceil, x_mask, y_lengths, budget,
-                                      self.cfg.n_timesteps, self.cfg.temperature, z=z)
-        wav = self._vocode(out["mel"], phase)
-        if self.cfg.output_dtype == "int16":
-            wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
-        tails = torch.stack([out["mel_lengths"], torch.clamp(y_lengths, max=32767)], dim=1)
-        return torch.cat([wav, tails.to(wav.dtype)], dim=1)
+    def _synth(self, budget: int, *args):
+        return self._replicas[0].synth(budget, *args)
 
-    def _synth(self, budget: int, x, xl, z, phase=None):
-        """The low-latency stage: encode and decode at a fixed budget."""
-        return self._decode(budget, *self._encode(x, xl), z, phase)
-
-    def _run(self, key, fn, *args):
-        """Stage `key` on `args`; caller holds the lock. On the card the graph of
-        `key` replays, captured first if it is new; its outputs must be copied
-        out before the next `_run`."""
-        stage = self._stages.get(key)
-        if stage is None:
-            stage = self._stages[key] = (_Eager(fn) if self.device.type == "cpu"
-                                         else _Graph(fn, args, self.device, self._pool))
-        out = stage.run(*args)
-        for name, n in stage.launches.items():
-            self.launches[name] += n
+    def _split(self, tensors):
+        """[the block of rows of `tensors` on each device], in device order."""
+        out = []
+        for i, rep in enumerate(self._replicas):
+            b = tensors[0].shape[0] // len(self._replicas)
+            out.append([t[i * b: (i + 1) * b].to(rep.device, non_blocking=True)
+                        for t in tensors])
         return out
 
-    def _encode_run(self, x, xl):
-        return self._run(("encode",) + tuple(x.shape), self._encode, x, xl)
+    def _sharded(self, key, stage: str, args, whole=()):
+        """`_Replica.<stage>(*whole, *args[i])` on device i, through the stage
+        of key(args[i]); caller holds the lock. Returns the devices' outputs,
+        which must be copied out before that device's next stage."""
+        outs = []
+        for rep, a in zip(self._replicas, args):
+            out, launches = rep.run(key(a), functools.partial(getattr(rep, stage), *whole), *a)
+            for name, c in launches.items():
+                self.launches[name] += c
+            outs.append(out)
+        return outs
 
-    def _decode_run(self, enc, draws, budget: int):
-        n, tx = enc[0].shape[:2]
-        return self._run(("decode", n, tx, budget),
-                         functools.partial(self._decode, budget), *enc, *draws)
+    def _encode_run(self, x, xl):
+        """The encode stage on each device's rows: a tuple of outputs a device."""
+        return self._sharded(lambda a: ("encode",) + tuple(a[0].shape), "encode",
+                             self._split((x, xl)))
+
+    def _decode_run(self, encs, draws, budget: int):
+        """The decode stage on each device's encode outputs and its block of
+        the draws: a packed block a device."""
+        args = [list(enc) + d for enc, d in zip(encs, self._split(draws))]
+        return self._sharded(lambda a: ("decode",) + tuple(a[0].shape[:2]) + (budget,), "decode",
+                             args, whole=(budget,))
+
+    def _lowlatency_run(self, x, xl, draws, budget: int):
+        return self._sharded(lambda a: ("lowlatency", a[0].shape[1], budget), "synth",
+                             self._split((x, xl) + tuple(draws)), whole=(budget,))
 
     # ------------------------------------------------------------ host side
+    def _rows(self, n: int) -> int:
+        """n rounded up to a multiple of the device count."""
+        return n + -n % len(self._replicas)
+
     def _tokenize(self, texts: Sequence[str], pad_pow2: bool = False):
         """Token ids (n, text bucket) and lengths (n,) on the host (pinned for
-        a card); `pad_pow2` rounds n up to a power of two by repeating row 0."""
+        a card); `pad_pow2` rounds n up to a power of two, and a mesh to a
+        multiple of its device count, by repeating row 0."""
         cfg = self.cfg
         seqs = [simple_text_to_sequence(t)[: cfg.max_text_len] for t in texts]
-        n = pow2(len(seqs)) if pad_pow2 else len(seqs)
+        n = self._rows(pow2(len(seqs)) if pad_pow2 else len(seqs))
         seqs += [seqs[0]] * (n - len(seqs))
         x = np.zeros((n, cfg.text_bucket(max(len(s) for s in seqs))), np.int64)
         xl = np.array([len(s) for s in seqs], np.int64)
@@ -290,7 +368,17 @@ class TTSEngine:
     def _draws(self, n: int, budget: int, seed: Optional[int],
                seeds: Optional[Sequence[int]]):
         """(z,) or, for Griffin-Lim, (z, phase): f32 pre-temperature noise
-        (n, budget, n_feats) and initial phase (n, n_freq, budget)."""
+        (n, budget, n_feats) and initial phase (n, n_freq, budget), then rows
+        repeating row 0 up to a multiple of the device count."""
+        draws = self._draw(n, budget, seed, seeds)
+        pad = self._rows(n) - n
+        if pad == 0:
+            return draws
+        return tuple(torch.cat([d, d[:1].expand(pad, *d.shape[1:])]) for d in draws)
+
+    def _draw(self, n: int, budget: int, seed: Optional[int],
+              seeds: Optional[Sequence[int]]):
+        """The n rows of `_draws`, on the first device."""
         nf = self.model.cfg.n_feats
         n_freq = self.cfg.mel_cfg.n_fft // 2 + 1
 
@@ -308,20 +396,27 @@ class TTSEngine:
                if seed is not None else self._rng)
         return draw((n,), gen)
 
-    def _host_lengths(self, y_lengths, n: int):
-        """The first n predicted lengths, read to the host (a sync on the card)."""
-        return [int(v) for v in y_lengths[:n].tolist()]
+    def _host_lengths(self, encs, n: int):
+        """The first n predicted lengths of the devices' encode outputs, read
+        to the host (a sync on the card)."""
+        return [int(v) for v in torch.cat([e[3].cpu() for e in encs])[:n].tolist()]
 
     def _to_host(self, packed):
-        """Start the copy of `packed` into a pinned host buffer: (buffer, CUDA
-        event recorded after the copy, None on the CPU)."""
+        """Start the copies of the devices' `packed` blocks into one host
+        buffer (pinned on the card): (buffer, None on the CPU, else an object
+        whose `synchronize()` waits for the copies)."""
         if self.device.type == "cpu":
-            return packed, None
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+            return (packed[0] if len(packed) == 1 else torch.cat(packed)), None
+        rows = sum(p.shape[0] for p in packed)
+        host = torch.empty((rows,) + tuple(packed[0].shape[1:]), dtype=packed[0].dtype,
+                           pin_memory=True)
+        events, start = [], 0
+        for p in packed:
+            host[start: start + p.shape[0]].copy_(p, non_blocking=True)
+            start += p.shape[0]
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(p.device))
+        return host, (events[0] if len(events) == 1 else _Events(events))
 
     def _finish(self, packed: np.ndarray, n: int):
         hop = self.cfg.mel_cfg.hop_size
@@ -343,15 +438,15 @@ class TTSEngine:
         for bs in batch_sizes:
             with self._lock:
                 x, xl = self._tokenize([text] * bs)
-                enc = tuple(t.clone() for t in self._encode_run(x, xl))
+                enc = [tuple(t.clone() for t in e) for e in self._encode_run(x, xl)]
                 for budget in self.cfg.mel_budgets:
                     draws = self._draws(bs, budget, 0, None)
                     self._decode_run(enc, draws, budget)
                     if bs == 1:
-                        self._run(("lowlatency", x.shape[1], budget),
-                                  functools.partial(self._synth, budget), x, xl, *draws)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                        self._lowlatency_run(x, xl, draws, budget)
+        for rep in self._replicas:
+            if rep.device.type == "cuda":
+                torch.cuda.synchronize(rep.device)
 
     def synthesise(self, texts: Sequence[str], seed: Optional[int] = None,
                    seeds: Optional[Sequence[int]] = None):
@@ -373,10 +468,11 @@ class TTSEngine:
             t0 = time.perf_counter()
             x, xl = self._tokenize(texts)
             enc = self._encode_run(x, xl)
-            y_pred = self._host_lengths(enc[3], len(texts))  # the one host read: picks the budget
+            y_pred = self._host_lengths(enc, len(texts))  # the one host read: picks the budget
             budget = self._pick_budget(fix_len_compatibility(max(y_pred)))
             draws = self._draws(len(texts), budget, seed, seeds)
-            packed = self._decode_run(enc, draws, budget).cpu().numpy()
+            packed = np.concatenate([p.cpu().numpy() for p in
+                                     self._decode_run(enc, draws, budget)])
             wall = time.perf_counter() - t0
         wavs, lengths, _ = self._finish(packed, len(texts))
         truncated = [p > budget for p in y_pred]
@@ -398,9 +494,8 @@ class TTSEngine:
             t0 = time.perf_counter()
             x, xl = self._tokenize([text])
             draws = self._draws(1, budget, None, None if seed is None else [seed])
-            packed = self._run(("lowlatency", x.shape[1], budget),
-                               functools.partial(self._synth, budget), x, xl, *draws)
-            packed = packed.cpu().numpy()
+            packed = np.concatenate([p.cpu().numpy() for p in
+                                     self._lowlatency_run(x, xl, draws, budget)])
             wall = time.perf_counter() - t0
         wavs, lengths, predicted = self._finish(packed, 1)
         truncated = int(predicted[0]) > budget
@@ -507,14 +602,14 @@ class TTSEngine:
                 y_pred = None  # zero-sync: the budget is known
                 by_budget = {self.cfg.mel_budgets[0]: list(range(len(reqs)))}
             else:
-                y_pred = self._host_lengths(enc[3], len(reqs))  # the one stage-A host read
+                y_pred = self._host_lengths(enc, len(reqs))  # the one stage-A host read
                 by_budget = {}
                 for i, f in enumerate(y_pred):
                     by_budget.setdefault(self._pick_budget(fix_len_compatibility(f)), []).append(i)
             wall_encode = time.perf_counter() - t0
             for budget, idx in sorted(by_budget.items()):
                 t_sub = time.perf_counter()
-                sel = idx + [idx[0]] * (pow2(len(idx)) - len(idx))
+                sel = idx + [idx[0]] * (self._rows(pow2(len(idx))) - len(idx))
                 if len(idx) != len(reqs):  # other rows: encode them at their own batch
                     enc = self._encode_run(*self._tokenize([reqs[i].text for i in sel]))
                 draws = self._draws(len(sel), budget, None, [reqs[i].seed for i in sel])

@@ -42,6 +42,20 @@ Randomness of the batch at schedule index i of epoch e (CFM t and z, crop
 offsets, dropout) comes from generators seeded by (seed + 1, e, i), and of
 validation batch i by (seed + 2, e, i): a run's trajectory depends neither
 on where it was resumed nor on K.
+
+Several ranks (`Trainer(mesh=...)`, `parallel/`): every rank builds the model
+from the seed and takes rank 0's weights (a broadcast); each loads its
+`[index::count]` cut of every global batch (its data index and count), draws
+the noise and dropout of the global batch and keeps its rows, and divides its
+losses by the global batch's normalisers, so that the gradients summed over
+the data group (one all-reduce a micro-step, inside the micro-step and so
+inside its CUDA graph) are the global batch's, and so are the logged losses
+and grad_norm. A mesh with a `model` axis also shards the Megatron pairs
+(`parallel.TensorParallel`); the grad norm then sums the squares of the
+blocks over the model group. Rank 0 writes `metrics.jsonl`, TensorBoard, the
+checkpoints (the gathered, full state) and the validation images; rank i > 0
+writes `metrics_rank{i}.jsonl`. Validation losses are global, so every rank
+ranks checkpoints alike.
 """
 
 import functools
@@ -54,6 +68,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from matcha_tpu_torch import apply_tf32_policy, resolve_device
 from matcha_tpu_torch.data.dataset import DataConfig, batch_iterator, num_batches
@@ -62,6 +77,18 @@ from matcha_tpu_torch.nn.dropout import dropout_generator
 from matcha_tpu_torch.ops.attention import attention, attention_backward
 from matcha_tpu_torch.ops.mas import mas_cuda
 from matcha_tpu_torch.ops.masks import fix_len_compatibility
+from matcha_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    all_reduce_flat,
+    batch_rows,
+    batch_sum,
+    is_main,
+    put_global_batch,
+    rank,
+    replicated,
+)
+from matcha_tpu_torch.parallel.sharding import TensorParallel
 from matcha_tpu_torch.train.checkpoints import CheckpointStore
 from matcha_tpu_torch.utils.profiling import StepTimer, start_trace, stop_trace
 
@@ -156,9 +183,10 @@ class AccumulatingAdamW:
     DIV, NEG_LR, BC1, BC2 = range(4)  # the columns of a row
     WIDTH = 4
 
-    def __init__(self, params, cfg: TrainConfig, steps_per_epoch: int):
+    def __init__(self, params, cfg: TrainConfig, steps_per_epoch: int, norm=global_norm):
         self.params = list(params)
         self.cfg = cfg
+        self.norm = norm  # the global norm of a gradient list (tensor parallelism's own)
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.mini_step = 0
         self.count = 0  # emitted updates
@@ -195,7 +223,7 @@ class AccumulatingAdamW:
         torch._foreach_add_(self.acc, delta)  # acc + (g - acc) / (i + 1)
         if not emit:
             return
-        norm = global_norm(self.acc)
+        norm = self.norm(self.acc)
         clip = torch.where(norm < cfg.grad_clip, torch.ones_like(norm), cfg.grad_clip / norm)
         adamw_(self.params, torch._foreach_mul(self.acc, clip), self.mu, self.nu,
                row[self.NEG_LR], row[self.BC1], row[self.BC2], cfg.betas, cfg.weight_decay)
@@ -218,8 +246,9 @@ class AccumulatingAdamW:
                 dst.copy_(src)
 
 
-def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, params) -> AccumulatingAdamW:
-    return AccumulatingAdamW(params, cfg, steps_per_epoch)
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, params,
+                   norm=global_norm) -> AccumulatingAdamW:
+    return AccumulatingAdamW(params, cfg, steps_per_epoch, norm)
 
 
 def total_loss(losses: dict) -> torch.Tensor:
@@ -272,15 +301,18 @@ def _tb_importable() -> bool:
 class MetricLogger:
     """`metrics.jsonl` in `log_dir`, and TensorBoard under `log_dir/tb` when
     `torch.utils.tensorboard` imports (`tb_available`, an import probe that
-    gates the validation images)."""
+    gates the validation images, the same on every rank). Several ranks:
+    rank 0 owns `metrics.jsonl` and TensorBoard, rank i > 0 writes
+    `metrics_rank{i}.jsonl`."""
 
     def __init__(self, log_dir, use_tensorboard: bool = True):
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        self.path = self.log_dir / "metrics.jsonl"
+        r = rank()
+        self.path = self.log_dir / ("metrics.jsonl" if r == 0 else f"metrics_rank{r}.jsonl")
         self.tb_available = use_tensorboard and _tb_importable()
         self.tb = None
-        if self.tb_available:
+        if self.tb_available and r == 0:
             from torch.utils.tensorboard import SummaryWriter
 
             self.tb = SummaryWriter(str(self.log_dir / "tb"))
@@ -412,17 +444,26 @@ def copy_out(out: torch.Tensor):
     return host, done
 
 
+def check_mesh_device(mesh, device: torch.device) -> None:
+    """Raise unless `mesh`'s ranks run on `device`'s kind: NCCL on the card,
+    gloo on the CPU."""
+    if mesh is not None and mesh.device.type != device.type:
+        raise ValueError(f"a mesh of {mesh.device.type} ranks cannot train on {device}")
+
+
 class Trainer:
-    """Trains on one device (the CUDA card unless `device` says otherwise)."""
+    """Trains on one device (the CUDA card unless `device` says otherwise), or
+    as one rank of `mesh` (`parallel.make_mesh`)."""
 
     def __init__(self, model_cfg: MatchaConfig = MatchaConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
-                 data_cfg: DataConfig = DataConfig(), device=None):
+                 data_cfg: DataConfig = DataConfig(), device=None, mesh=None):
         if train_cfg.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be fp32 or bf16, got {train_cfg.precision}")
         if train_cfg.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {train_cfg.steps_per_dispatch}")
         self.device = resolve_device(device)
+        check_mesh_device(mesh, self.device)
         if train_cfg.mas_impl not in MAS_IMPLS or (
                 train_cfg.mas_impl == "ref" and self.device.type != "cpu"):
             raise ValueError(f"mas_impl {train_cfg.mas_impl!r} on {self.device.type}: the port "
@@ -435,6 +476,16 @@ class Trainer:
             torch.manual_seed(train_cfg.seed)
             self.model = MatchaTTS(model_cfg)
         self.model.to(self.device)
+        self.mesh = mesh
+        self._rows = None  # this rank's rows of the global batch
+        self._tp: Optional[TensorParallel] = None
+        if mesh is not None:
+            replicated(self.model)
+            self._rows = mesh.rows()
+            if MODEL_AXIS in mesh.axes:
+                self._tp = TensorParallel(self.model, mesh)
+                self._tp.shard()
+        self._norm = global_norm if self._tp is None else self._tp.norm
         self.params = [p for p in self.model.parameters()]
         self.optimizer: Optional[AccumulatingAdamW] = None
         self.checkpoints = CheckpointStore(train_cfg.ckpt_dir, train_cfg.keep_top_k)
@@ -451,18 +502,18 @@ class Trainer:
     def init_optimizer(self, steps_per_epoch: int) -> AccumulatingAdamW:
         """A fresh optimizer; the graphs, which read the old one's state by
         address, are dropped."""
-        self.optimizer = make_optimizer(self.train_cfg, steps_per_epoch, self.params)
+        self.optimizer = make_optimizer(self.train_cfg, steps_per_epoch, self.params,
+                                        self._norm)
         self.graphs.clear()
         return self.optimizer
 
     # ----------------------------------------------------------- micro-steps
-    def _micro_step(self, b: dict, row: torch.Tensor, slot: _Slot, emit: bool) -> torch.Tensor:
-        """Losses, gradients and an optimizer micro-step on device tensors:
-        the batch `b`, its scalar row and its slot's generators; `emit`: it
-        ends an accumulation. Returns the (5,) metrics (`METRICS`); grad_norm
-        is 0 unless logged."""
+    def _losses_and_grads(self, b: dict, slot: _Slot):
+        """The (4,) losses (`METRICS` but grad_norm) and the gradients of the
+        batch `b` (device tensors) with its slot's generators: the global
+        batch's, summed over the data group, under a mesh."""
         self.model.train()
-        with dropout_generator(slot.dropout):
+        with dropout_generator(slot.dropout), batch_rows(self._rows):
             out = self.model.compute_losses(
                 b["x"], b["x_lengths"], b["y"], b["y_lengths"],
                 out_size=self.train_cfg.out_size, decoder_dtype=self._decoder_dtype,
@@ -470,11 +521,23 @@ class Trainer:
             losses = {k: out[k] for k in ("dur_loss", "prior_loss", "diff_loss")}
             loss = total_loss(losses)
             grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
-        norm = (global_norm(grads) if self.train_cfg.log_grad_norm
-                else torch.zeros((), device=loss.device))
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+            metrics = torch.stack([*losses.values(), loss])
+            if self._rows is not None:
+                grads = all_reduce_flat(grads, self._rows.group)
+                metrics = batch_sum(metrics)
+        return metrics.detach(), grads
+
+    def _micro_step(self, b: dict, row: torch.Tensor, slot: _Slot, emit: bool) -> torch.Tensor:
+        """Losses, gradients and an optimizer micro-step on device tensors:
+        the batch `b`, its scalar row and its slot's generators; `emit`: it
+        ends an accumulation. Returns the (5,) metrics (`METRICS`); grad_norm
+        is 0 unless logged."""
+        metrics, grads = self._losses_and_grads(b, slot)
+        norm = (self._norm(grads) if self.train_cfg.log_grad_norm
+                else torch.zeros((), device=metrics.device))
         self.optimizer.apply(grads, row, emit)
-        return torch.stack([*losses.values(), loss, norm]).detach()
+        return torch.cat([metrics, norm[None]]).detach()
 
     def _steps(self, inputs: dict, slots, emits) -> torch.Tensor:
         """The micro-steps of one dispatch on stacked (K, ...) device tensors
@@ -543,16 +606,43 @@ class Trainer:
     def eval_step(self, batch: dict, epoch: int, index: int) -> dict:
         """Validation losses of one batch (dropout off, f32 U-Net), as 0-d tensors."""
         noise_seed, _ = batch_seeds(self.train_cfg.seed + 2, epoch, index)
-        b = {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True) for k in BATCH_KEYS}
+        b = put_global_batch(self.mesh, {k: batch[k] for k in BATCH_KEYS}, self.device)
         self.model.eval()
         gen = torch.Generator(device=self.device).manual_seed(noise_seed)
-        out = self.model.compute_losses(b["x"], b["x_lengths"], b["y"], b["y_lengths"],
-                                        generator=gen)
-        losses = {k: out[k] for k in ("dur_loss", "prior_loss", "diff_loss")}
+        names = ("dur_loss", "prior_loss", "diff_loss")
+        with batch_rows(self._rows):
+            out = self.model.compute_losses(b["x"], b["x_lengths"], b["y"], b["y_lengths"],
+                                            generator=gen)
+            values = batch_sum(torch.stack([out[k] for k in names]))
+        losses = dict(zip(names, values))
         losses["loss"] = total_loss(losses)
         return losses
 
     # ------------------------------------------------------------------ fit
+    def _data_shard(self) -> dict:
+        """This rank's cut of the data: its index and the count of data ranks."""
+        if self._rows is None:
+            return {}
+        return {"process_index": self._rows.index, "process_count": self._rows.count}
+
+    def _full_state(self) -> dict:
+        """The model's and the optimizer's state, whole (tensor-parallel blocks
+        gathered: a collective on the model group)."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self._tp is not None:
+            model = self._tp.state_dict()
+            opt = dict(opt, **{k: self._tp.gather(opt[k]) for k in ("acc", "mu", "nu")})
+        return {"model": model, "optimizer": opt}
+
+    def _load_full_state(self, state: dict) -> None:
+        opt = state["optimizer"]
+        if self._tp is None:
+            self.model.load_state_dict(state["model"])
+        else:
+            self._tp.load_state_dict(state["model"])
+            opt = dict(opt, **{k: self._tp.blocks(opt[k]) for k in ("acc", "mu", "nu")})
+        self.optimizer.load_state_dict(opt)
+
     def _flush_logs(self, pending: list, wait: bool) -> None:
         flush_logs(pending, wait, self.train_cfg.log_every,
                    lambda step, row, epoch: self.logger.log(step, self._named(row),
@@ -564,15 +654,16 @@ class Trainer:
         `ckpt_every_epochs`, the last one always)."""
         cfg = self.train_cfg
         max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
-        steps_per_epoch = max(num_batches(len(train_ds), self.data_cfg), 1)
+        shard = self._data_shard()
+        steps_per_epoch = max(num_batches(len(train_ds), self.data_cfg,
+                                          shard.get("process_count", 1)), 1)
         self.init_optimizer(steps_per_epoch)
         step, start_epoch = 0, 0
         if resume:
             restored = self.checkpoints.restore_latest(map_location=self.device)
             if restored is not None:
                 state, step, start_epoch = restored
-                self.model.load_state_dict(state["model"])
-                self.optimizer.load_state_dict(state["optimizer"])
+                self._load_full_state(state)
                 print(f"resumed from step {step} (epoch {start_epoch})")
 
         k_max = cfg.steps_per_dispatch
@@ -583,7 +674,8 @@ class Trainer:
         try:
             for epoch in range(start_epoch, max_epochs):
                 pairs = (({k: v for k, v in b.items() if k != "n_real"}, i) for i, b in
-                         enumerate(batch_iterator(train_ds, self.data_cfg, epoch=epoch)))
+                         enumerate(batch_iterator(train_ds, self.data_cfg, epoch=epoch,
+                                                  **shard)))
                 with epoch_timer.measure() as epoch_out:
                     for chunk in chunk_batches_by_shape(pairs, k_max):
                         # a full group replays its K-step graph; a remainder, its
@@ -605,10 +697,11 @@ class Trainer:
                 agg = self._validate(val_ds, epoch, step, epoch_timer.times[-1])
                 self._maybe_render_validation(val_ds, epoch, step, max_epochs)
                 if (epoch + 1) % cfg.ckpt_every_epochs == 0 or epoch + 1 == max_epochs:
-                    self.checkpoints.save(step, epoch + 1,
-                                          {"model": self.model.state_dict(),
-                                           "optimizer": self.optimizer.state_dict()},
-                                          agg["loss"])
+                    state = self._full_state()
+                    if is_main():
+                        self.checkpoints.save(step, epoch + 1, state, agg["loss"])
+                    if self.mesh is not None:  # the checkpoint is on disk for every rank
+                        dist.barrier()
         finally:
             if profiler is not None:  # the run ended before the 4th dispatch
                 stop_trace(profiler, cfg.profile_dir, self.device)
@@ -619,8 +712,8 @@ class Trainer:
         """Validation losses of the epoch, each batch weighted by its distinct
         items, logged with the epoch's training seconds."""
         val, weights = [], []
-        for vi, batch in enumerate(batch_iterator(val_ds, self.data_cfg, epoch=0,
-                                                  shuffle=False, drop_last=False)):
+        for vi, batch in enumerate(batch_iterator(val_ds, self.data_cfg, epoch=0, shuffle=False,
+                                                  drop_last=False, **self._data_shard())):
             weights.append(batch.pop("n_real"))
             val.append({k: float(v) for k, v in self.eval_step(batch, epoch, vi).items()})
         if val:
@@ -647,9 +740,12 @@ class Trainer:
     def _log_validation_images(self, val_ds, epoch: int, step: int, n_samples: int = 2):
         """Encoder output, decoder output (10 Euler steps, noise seeded by the
         epoch) and alignment of the first validation items as TensorBoard
-        images, and the target mel at epoch 0. A failure is printed: rendering
-        never stops training."""
-        if self.logger.tb is None or len(val_ds) == 0:
+        images, and the target mel at epoch 0. Rank 0 writes them; under
+        tensor parallelism its model group decodes with it. A failure is
+        printed: rendering never stops training."""
+        decodes = self.logger.tb is not None or (
+            self._tp is not None and self.mesh.index(DATA_AXIS) == 0)
+        if not decodes or len(val_ds) == 0:
             return
         try:
             import matplotlib  # noqa: F401  (absent: nothing to render, so no decode)
@@ -662,7 +758,7 @@ class Trainer:
                 item = val_ds.get(i)
                 x = torch.as_tensor(item["x"], dtype=torch.int64, device=self.device)[None, :]
                 xl = torch.tensor([x.shape[1]], device=self.device)
-                if epoch == 0:
+                if epoch == 0 and tb is not None:
                     tb.add_image(f"original/{i}", plot_tensor(item["y"].T), epoch,
                                  dataformats="HWC")
                 mu_x, w_ceil, x_mask, y_len = self.model.encode_durations(x, xl)
@@ -674,6 +770,8 @@ class Trainer:
                 for name, arr in (("generated_enc", out["encoder_outputs"][0].T),
                                   ("generated_dec", out["decoder_outputs"][0].T),
                                   ("alignment", out["attn"][0])):
-                    tb.add_image(f"{name}/{i}", plot_tensor(arr), epoch, dataformats="HWC")
+                    if tb is not None:
+                        tb.add_image(f"{name}/{i}", plot_tensor(arr), epoch,
+                                     dataformats="HWC")
         except Exception as e:  # rendering must never kill training
             print(f"validation image rendering failed: {e!r}")

@@ -30,6 +30,17 @@ at first use (`trainer._StepGraph`) after one eager run on a side stream
 whose optimizer updates are undone, in one memory pool per trainer. The step
 draws no randomness. A capture or replay failure raises. On CPU tensors the
 same steps run eagerly. Validation runs eagerly on both.
+
+Several ranks (`VocoderTrainer(mesh=...)`, `parallel/`): both networks are
+replicated (rank 0's weights, broadcast), every rank reads the global batch
+of each step (`batch_size` x the data ranks, the segment crops drawn for it
+in order) and trains on its block of rows. Every loss is a mean over equal
+blocks, so the mean of the ranks' gradients is the global batch's: each
+gradient is summed over the data group and scaled by 1 / n inside the step
+(and its CUDA graph), before its optimizer update. The logged metrics and
+the validation L1 are the ranks' means. A world-n run at `batch_size` B
+trains as a world-1 run at n B. Rank 0 writes the checkpoints and
+`metrics.jsonl`, rank i > 0 `metrics_rank{i}.jsonl`.
 """
 
 import time
@@ -39,6 +50,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from matcha_tpu_torch import apply_tf32_policy, resolve_device
@@ -55,12 +67,14 @@ from matcha_tpu_torch.models.hifigan import (
     generator_loss,
     norm_init_,
 )
+from matcha_tpu_torch.parallel.mesh import all_reduce_flat, is_main, replicated
 from matcha_tpu_torch.train.checkpoints import CheckpointStore
 from matcha_tpu_torch.train.trainer import (
     MetricLogger,
     _Eager,
     _StepGraph,
     adamw_,
+    check_mesh_device,
     copy_out,
     flush_logs,
     host_tensor,
@@ -153,12 +167,19 @@ def make_optimizers(cfg: VocoderTrainConfig, steps_per_epoch: int, gen_params, d
 
 
 def make_vocoder_step(gen: Generator, disc: Discriminators, opt_g: ScheduledAdamW,
-                      opt_d: ScheduledAdamW, cfg: VocoderTrainConfig, mel_cfg: MelConfig):
+                      opt_d: ScheduledAdamW, cfg: VocoderTrainConfig, mel_cfg: MelConfig,
+                      group=None):
     """The GAN step: (y (B, T) waveforms, row (2 * WIDTH,): the generator's
     optimizer row, then the discriminators') on the device -> (5,) metrics
-    (`METRICS`). Updates both networks and their optimizers in place."""
+    (`METRICS`). Updates both networks and their optimizers in place. With a
+    data `group`, y is this rank's block of the global batch, and the
+    gradients and metrics are the means over the group's ranks."""
     loss_mel_cfg = replace(mel_cfg, fmax=None)  # the loss mel covers the full band
     w = ScheduledAdamW.WIDTH
+    scale = None if group is None else 1.0 / dist.get_world_size(group)
+
+    def mean(tensors):
+        return tensors if group is None else all_reduce_flat(tensors, group, scale)
 
     def step(y: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
         y_hat = gen(mel_spectrogram(mel_cfg, y).transpose(1, 2))
@@ -166,7 +187,7 @@ def make_vocoder_step(gen: Generator, disc: Discriminators, opt_g: ScheduledAdam
         # the discriminators' update, on the generator's output detached
         (pr, pg, _, _), (sr, sg, _, _) = disc(y, y_hat.detach())
         d_loss = discriminator_loss(pr, pg)[0] + discriminator_loss(sr, sg)[0]
-        opt_d.apply(torch.autograd.grad(d_loss, opt_d.params), row[w:])
+        opt_d.apply(mean(torch.autograd.grad(d_loss, opt_d.params)), row[w:])
 
         # the generator's update, against the refreshed discriminators
         (pr, pg, pfr, pfg), (sr, sg, sfr, sfg) = disc(y, y_hat)
@@ -175,8 +196,8 @@ def make_vocoder_step(gen: Generator, disc: Discriminators, opt_g: ScheduledAdam
         fm = feature_loss(pfr, pfg) + feature_loss(sfr, sfg)
         adv = generator_loss(pg)[0] + generator_loss(sg)[0]
         g_loss = adv + fm + mel_l1
-        opt_g.apply(torch.autograd.grad(g_loss, opt_g.params), row[:w])
-        return torch.stack([mel_l1, fm, adv, d_loss, g_loss]).detach()
+        opt_g.apply(mean(torch.autograd.grad(g_loss, opt_g.params)), row[:w])
+        return mean([torch.stack([mel_l1, fm, adv, d_loss, g_loss]).detach()])[0]
 
     return step
 
@@ -204,12 +225,13 @@ def load_generator_for_inference(ckpt_dir, prefer: str = "best"):
 
 
 class VocoderTrainer:
-    """Trains HiFi-GAN on one device (the CUDA card unless `device` says otherwise)."""
+    """Trains HiFi-GAN on one device (the CUDA card unless `device` says
+    otherwise), or as one rank of `mesh`'s data axis (`parallel.make_mesh`)."""
 
     def __init__(self, gen_cfg: HiFiGANConfig = HiFiGANConfig(),
                  train_cfg: VocoderTrainConfig = VocoderTrainConfig(),
                  data_cfg: AudioDataConfig = AudioDataConfig(), mel_cfg: MelConfig = MelConfig(),
-                 disc: Optional[Discriminators] = None, device=None):
+                 disc: Optional[Discriminators] = None, device=None, mesh=None):
         hop = int(np.prod(gen_cfg.upsample_rates))
         if hop != mel_cfg.hop_size:
             raise ValueError(f"generator upsampling x{hop} must equal the mel hop "
@@ -220,6 +242,7 @@ class VocoderTrainer:
         if train_cfg.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {train_cfg.steps_per_dispatch}")
         self.device = resolve_device(device)
+        check_mesh_device(mesh, self.device)
         if self.device.type == "cuda":
             apply_tf32_policy()
         self.gen_cfg, self.train_cfg, self.data_cfg, self.mel_cfg = (
@@ -230,10 +253,15 @@ class VocoderTrainer:
             self.disc = Discriminators() if disc is None else norm_init_(disc)
         self.gen.to(self.device).train()
         self.disc.to(self.device).train()
+        self.mesh = mesh
+        self._rows = None if mesh is None else mesh.rows()  # this rank's rows
+        if mesh is not None:
+            replicated(self.gen)
+            replicated(self.disc)
         self.opt_g: Optional[ScheduledAdamW] = None
         self.opt_d: Optional[ScheduledAdamW] = None
         self.checkpoints = CheckpointStore(train_cfg.ckpt_dir, train_cfg.keep_top_k)
-        self.eval_step = make_vocoder_eval(self.gen, mel_cfg)
+        self._eval_local = make_vocoder_eval(self.gen, mel_cfg)
         # (K, segment shape) -> _StepGraph, on the card; all share one pool
         self.graphs: dict = {}
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
@@ -246,7 +274,8 @@ class VocoderTrainer:
         self.opt_g, self.opt_d = make_optimizers(self.train_cfg, steps_per_epoch,
                                                  self.gen.parameters(), self.disc.parameters())
         self._step = make_vocoder_step(self.gen, self.disc, self.opt_g, self.opt_d,
-                                       self.train_cfg, self.mel_cfg)
+                                       self.train_cfg, self.mel_cfg,
+                                       None if self._rows is None else self._rows.group)
         self.graphs.clear()
         return self.opt_g, self.opt_d
 
@@ -288,13 +317,30 @@ class VocoderTrainer:
             self.replays[k] = self.replays.get(k, 0) + 1
         return runner.run(host)
 
+    def eval_step(self, y: torch.Tensor) -> torch.Tensor:
+        """The full-band mel L1 of resynthesised segments y (0-d): with a mesh,
+        of the global batch whose block of rows y is."""
+        val = self._eval_local(y)
+        if self._rows is None:
+            return val
+        return all_reduce_flat([val], self._rows.group, 1.0 / self._rows.count)[0]
+
+    def _batches(self, ds, **kw):
+        """The batches `wav_batch_iterator` gives; with a mesh, this rank's
+        block of rows of each global batch (crops drawn for the whole batch)."""
+        if self._rows is None:
+            yield from wav_batch_iterator(ds, self.data_cfg, **kw)
+            return
+        b, (i, n) = self.data_cfg.batch_size, (self._rows.index, self._rows.count)
+        for y in wav_batch_iterator(ds, replace(self.data_cfg, batch_size=b * n), **kw):
+            yield np.ascontiguousarray(y[i * b: (i + 1) * b])
+
     def validate(self, val_ds) -> float:
         """The mean over validation batches of `eval_step` (inf without data)."""
         if val_ds is None or len(val_ds) == 0:
             return float("inf")
         vals = [float(self.eval_step(torch.from_numpy(y).to(self.device)))
-                for y in wav_batch_iterator(val_ds, self.data_cfg, epoch=0, shuffle=False,
-                                            drop_last=False)]
+                for y in self._batches(val_ds, epoch=0, shuffle=False, drop_last=False)]
         return float(np.mean(vals)) if vals else float("inf")
 
     def fit(self, train_ds, val_ds=None, max_epochs: Optional[int] = None,
@@ -304,7 +350,8 @@ class VocoderTrainer:
         `ckpt_every_epochs` (the last epoch always)."""
         cfg = self.train_cfg
         max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
-        steps_per_epoch = max(len(train_ds) // self.data_cfg.batch_size, 1)
+        ranks = 1 if self._rows is None else self._rows.count
+        steps_per_epoch = max(len(train_ds) // (self.data_cfg.batch_size * ranks), 1)
         self.init_optimizers(steps_per_epoch)
         step, start_epoch = 0, 0
         if resume:
@@ -335,7 +382,7 @@ class VocoderTrainer:
             for epoch in range(start_epoch, max_epochs):
                 t0 = time.perf_counter()
                 buf = []  # runs of K through the K-step graph
-                for y in wav_batch_iterator(train_ds, self.data_cfg, epoch=epoch):
+                for y in self._batches(train_ds, epoch=epoch):
                     buf.append(y)
                     if len(buf) == cfg.steps_per_dispatch:
                         run(buf, epoch)
@@ -346,13 +393,16 @@ class VocoderTrainer:
                 val_loss = self.validate(val_ds)
                 logger.log(step, {"mel_l1": val_loss, "epoch_seconds": time.perf_counter() - t0},
                            prefix="val/", epoch=epoch)
-                if (epoch + 1) % cfg.ckpt_every_epochs == 0 or epoch + 1 == max_epochs:
+                save = (epoch + 1) % cfg.ckpt_every_epochs == 0 or epoch + 1 == max_epochs
+                if save and is_main():
                     self.checkpoints.save(
                         step, epoch + 1,
                         {"model": {"gen": self.gen.state_dict(), "disc": self.disc.state_dict()},
                          "optimizer": {"gen": self.opt_g.state_dict(),
                                        "disc": self.opt_d.state_dict()}},
                         val_loss)
+                if save and self.mesh is not None:  # the checkpoint is on disk for every rank
+                    dist.barrier()
         finally:
             logger.close()
         return step

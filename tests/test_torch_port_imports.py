@@ -28,7 +28,10 @@ new = {"matcha_tpu_torch.nn.dropout", "matcha_tpu_torch.data.ljspeech",
        "matcha_tpu_torch.compat.torch_import", "matcha_tpu_torch.ops.mas_cpp",
        "matcha_tpu_torch.cli.generate", "matcha_tpu_torch.cli.serve",
        "matcha_tpu_torch.cli.bench_mas", "matcha_tpu_torch.cli.vocoder_report",
-       "matcha_tpu_torch.cli.analyze", "matcha_tpu_torch.data.download"}
+       "matcha_tpu_torch.cli.analyze", "matcha_tpu_torch.data.download",
+       "matcha_tpu_torch.parallel", "matcha_tpu_torch.parallel.mesh",
+       "matcha_tpu_torch.parallel.sharding", "matcha_tpu_torch.parallel.ring_attention",
+       "matcha_tpu_torch.cli.bench_scaling"}
 assert new <= set(names), new - set(names)
 print("MODULES", len(names))
 print("LEAKED", leaked)
@@ -55,7 +58,11 @@ from matcha_tpu_torch.ops.mrf import mrf_step
 from matcha_tpu_torch.serve import ServeConfig, TTSEngine
 from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 from matcha_tpu_torch.train.vocoder import VocoderTrainConfig, VocoderTrainer
-from matcha_tpu_torch.cli import bench_mas, generate, serve, train_vocoder, vocoder_report
+from matcha_tpu_torch.cli import (bench_mas, bench_scaling, generate, serve, train_vocoder,
+                                  vocoder_report)
+from matcha_tpu_torch.audio.mel import MelConfig
+from matcha_tpu_torch.parallel import make_mesh
+from matcha_tpu_torch.parallel.ring_attention import ring_attention_local
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device(None),
@@ -73,6 +80,10 @@ for call in (lambda: resolve_device(None),
              lambda: serve.main(["--texts", "a", "--ckpt-dir", "unused-ckpt-dir",
                                  "--out-dir", "unused-ckpt-dir"]),
              lambda: bench_mas.main([]),
+             lambda: bench_scaling.main(["--devices", "2"]),
+             lambda: TTSEngine(MatchaTTS(tiny_config()).state_dict(), tiny_config(),
+                               ServeConfig(mel_cfg=MelConfig(n_mels=8)),
+                               mesh=make_mesh(devices=["cuda", "cuda"])),
              lambda: vocoder_report.main(["--synthetic", "--out", "unused-ckpt-dir/r.json"])):
     try:
         call()
@@ -92,7 +103,8 @@ for call in (lambda: attention(q, q, q, None, 0.125),
              lambda: mrf_step(torch.empty(1, 8, 16, device="meta"), w, b, w, b, 1),
              lambda: mas.maximum_path(value, value, lengths, lengths),
              lambda: attention_backward(q, q, q, None, q, q,
-                                        torch.empty(1, 4, 8, device="meta"), 0.125)):
+                                        torch.empty(1, 4, 8, device="meta"), 0.125),
+             lambda: ring_attention_local(q, [(q, q, torch.empty(1, 8, device="meta"))])):
     try:
         call()
     except ValueError as e:
