@@ -34,14 +34,20 @@ PyTorch built for CUDA. In order:
    and K2 counts equal the graph accounting); 20 low-latency walls. Then the
    same for a full-width Griffin-Lim engine in f32 at `MelConfig()`, with
    Griffin-Lim card vs CPU, and 8 threads through `serve()` across two
-   budgets, each equal to its solo synthesis;
+   budgets, each equal to its solo synthesis. Then one batch of 16 texts
+   (the engine's `max_batch`) through `synthesise` at budget 512 on the
+   graphs of a bf16 HiFi-GAN engine, counted the same way (K1 60, K2 36 a
+   replay, none eager), profiled and timed; and each feed-forward variant of
+   the decoder block ("gelu", "gelu-approximate", "geglu", "snake",
+   "snakebeta") at full width, card against CPU in f32 through K1;
 4. the training path: `Trainer.fit` at full width on 64 synthetic items
    (batch 16: 4 micro-steps, 2 updates and a validation batch an epoch), one
    epoch in fp32, one in bf16, then the bf16 run resumed for a second at
    steps_per_dispatch 2, every micro-step a CUDA graph replay, with the
    counts set to 0 just before and read just after (the replays' K1, K4 and
    MAS launches as derived; eager launches only in the graphs' captures and
-   warm-ups and in validation). Then the training graphs on a bucket set
+   warm-ups; every validation batch a replay of the validation graph of its
+   shapes, MAS 1 and K1 6 each). Then the training graphs on a bucket set
    (128 items of 300-400 frames): the same micro-steps eagerly and as K = 2
    and 1-step replays, fp32 and bf16 (metrics within their bars, parameters
    within the drift bars, bit equality reported beside a second eager run);
@@ -50,13 +56,18 @@ PyTorch built for CUDA. In order:
    "full" and "dots" against none; launches per replay by the graph
    accounting and by the profiler's kernel names; micro-step walls (median
    of 20 replays, 10 eager steps), busy, idle, host calls a dispatch,
-   capture seconds and the graph pool's bytes;
+   capture seconds and the graph pool's bytes; validation on its graphs
+   against the same batches eagerly on the same weights (64 items, fp32 and
+   bf16 trainers; losses within rtol 2e-5), a pass's launches by the graph
+   accounting and by the profiler, and the walls of a pass eager and
+   replayed;
 5. the vocoder training path at full width (`HiFiGANConfig()`, v1's
    discriminators, `VocoderTrainConfig()`, batch 16 of 8192 samples, 64
    synthetic items: 4 GAN steps an epoch): `VocoderTrainer.fit` two epochs
    at K = 4 with 8 validation items, resumed for a third at K = 1, every GAN
-   step a CUDA graph replay (none eager, no K2 in training), all losses
-   finite; an epoch at K = 1 against the K = 4 run's first (per-step logs
+   step and every validation batch a CUDA graph replay (none eager, no K2 in
+   training), all losses finite; validation replayed against eager on the
+   same weights, and a pass's walls; an epoch at K = 1 against the K = 4 run's first (per-step logs
    within rtol 1e-4); the same 4 steps eagerly on the card, twice, against
    the replays (metrics, parameters); one GAN step at batch 2 card vs CPU;
    GAN-step walls replayed and eager, busy, idle, host calls, capture
@@ -80,7 +91,12 @@ PyTorch built for CUDA. In order:
    the C++ MAS at (8, 50, 200), (16, 100, 500) and (32, 150, 800), then
    timed); `cli.vocoder_report --synthetic --n 4` on the trained vocoder
    store (K2 36 an item, each item's waveform against the training-form
-   generator on the same mel within K2's f32 bar);
+   generator on the same mel within K2's f32 bar); then the examples at full
+   width with no --device: `examples/demo_torch.py` (K1 60, K2 36, mel and
+   both waveforms against the same calls made directly) and
+   `examples/demo_serving_torch.py --bf16` (launches replayed and at capture
+   equal to a fresh engine's driven directly through the same calls, every
+   wav bit-equal);
 7. holds the port on the card against itself on the CPU in float32 with TF32
    off (one served text; one training forward and backward, losses and
    gradients) and against the frozen reference outputs of
@@ -89,7 +105,9 @@ PyTorch built for CUDA. In order:
    f32, the trained vocoder's K1 and K2 in both dtypes, generate's K1 and K2
    and vocoder_report's K2 in f32 and bench_mas's MAS included), holds
    the kernel against its plain version and times the kernel, its plain
-   version and the matching PyTorch call, beside the least time the card could take; times K1 and K4
+   version and the matching PyTorch call (SDPA for K1, K2's unfused
+   sequence), beside the least time the card could take, the batch of 16
+   included (path `serve16`); times K1 and K4
    a call at the serving shapes (batch 1 and 4) and at training's B=16,
    T=448 in both dtypes; times K2 at every (C, T, k, d) of a 1024-frame
    request and of a batch of 4 at 512, in both dtypes, beside its plain
@@ -1002,21 +1020,34 @@ def per_micro_step(mcfg, remat=None):
             "attention_bwd": 2 * n_attn}
 
 
+def per_validation_batch(mcfg):
+    """Launches of one validation batch: MAS 1, K1 once per transformer block
+    (a forward without lse), no K4."""
+    step = per_micro_step(mcfg)
+    return {"mas": 1, "attention_fwd": step["attention_fwd"], "attention_bwd": 0}
+
+
 def check_graph_launches(trainer, mcfg, remat=None):
     """Every graph of `trainer` recorded, at capture and in its warm-up run,
-    K times the launches of a micro-step."""
+    K times the launches of a micro-step, and every validation graph those of
+    a validation batch."""
     step = per_micro_step(mcfg, remat)
-    for key, g in trainer.graphs.items():
-        want = {n: g.k * c for n, c in step.items()}
+    graphs = [(key, g, {n: g.k * c for n, c in step.items()}) for key, g in trainer.graphs.items()]
+    graphs += [(key, g, per_validation_batch(mcfg)) for key, g in trainer.eval_graphs.items()]
+    for key, g, want in graphs:
         if g.launches != want or g.warmup_launches != want:
             raise AssertionError(f"graph {key}: captured {g.launches}, warm-up "
                                  f"{g.warmup_launches}, expected {want} each")
 
 
 def graph_summary(trainer):
-    return {"graphs": [{"key": list(key), "k": g.k, "capture_s": g.capture_s,
-                        "launches_per_replay": g.launches} for key, g in trainer.graphs.items()],
+    def summary(graphs):
+        return [{"key": list(key), "k": g.k, "capture_s": g.capture_s,
+                 "launches_per_replay": g.launches} for key, g in graphs.items()]
+
+    return {"graphs": summary(trainer.graphs),
             "replays": {str(k): n for k, n in trainer.replays.items()},
+            "eval_graphs": summary(trainer.eval_graphs), "eval_replays": trainer.eval_replays,
             "pool_bytes": graph_pool_bytes(trainer)}
 
 
@@ -1025,10 +1056,11 @@ def train_main_path(dev, mcfg, seed, root):
     CUDA graphs: one epoch in fp32, one in bf16, then the bf16 run resumed for
     a second epoch at steps_per_dispatch 2. The counts are set to 0 just
     before and read just after. The replays must have run, per micro-step, MAS
-    1 (K3a and K3b fused), K1 6 and K4 12 (6 backward calls of 2 launches);
-    the wrappers may tick only in each graph's capture and warm-up run and in
-    validation (MAS 1, K1 6 per batch, eager): no training step ran eagerly.
-    The path's launches are the replays' and validation's."""
+    1 (K3a and K3b fused), K1 6 and K4 12 (6 backward calls of 2 launches),
+    and per validation batch a validation graph's MAS 1 and K1 6; the wrappers
+    may tick only in each graph's capture and warm-up run (and in validation
+    images): no training step and no validation batch ran eagerly. The path's
+    launches are the replays'."""
     from matcha_tpu_torch.data.dataset import num_batches
     from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -1049,6 +1081,7 @@ def train_main_path(dev, mcfg, seed, root):
         fn.launches = 0
     replayed = {n: 0 for n in counters}
     captured = {n: 0 for n in counters}
+    eval_replays = 0
     runs = []
     Trainer._log_validation_images = counted_render
     for precision, epochs, k in TRAIN_RUNS:
@@ -1063,8 +1096,9 @@ def train_main_path(dev, mcfg, seed, root):
         check_graph_launches(trainer, mcfg)
         for n in counters:
             replayed[n] += trainer.launches[n]
-            captured[n] += sum(g.launches[n] + g.warmup_launches[n]
-                               for g in trainer.graphs.values())
+            captured[n] += sum(g.launches[n] + g.warmup_launches[n] for g in
+                               list(trainer.graphs.values()) + list(trainer.eval_graphs.values()))
+        eval_replays += trainer.eval_replays
         train_rows, val_rows = read_metrics(ckpt)
         runs.append({"precision": precision, "epochs": epochs, "steps_per_dispatch": k,
                      "step": step, "updates": trainer.optimizer.count, "wall_s": wall,
@@ -1079,27 +1113,29 @@ def train_main_path(dev, mcfg, seed, root):
     micro = num_batches(TRAIN_ITEMS, dcfg)
     val_batches = num_batches(VAL_ITEMS, dcfg, drop_last=False)
     epochs = len(TRAIN_RUNS)  # each run trains one epoch (the third resumes at epoch 1)
-    step_launches = per_micro_step(mcfg)
-    want = {n: epochs * micro * c for n, c in step_launches.items()}
-    validation = {"mas": epochs * val_batches,
-                  "attention_fwd": epochs * val_batches * step_launches["attention_fwd"],
-                  "attention_bwd": 0}
+    step_launches, val_launches = per_micro_step(mcfg), per_validation_batch(mcfg)
+    want = {n: epochs * (micro * c + val_batches * val_launches[n])
+            for n, c in step_launches.items()}
     eager = {n: ticks[n] - captured[n] - rendered[n] for n in ticks}
     # a validation image is one 10-step decode: K1 only
     per_image = 10 * step_launches["attention_fwd"]
-    log(f"training path launches by graph replay {replayed} (expected {want}); eager "
-        f"{eager} (expected validation's {validation}); at capture and warm-up {captured}; "
-        f"validation images {rendered}")
-    if replayed != want or eager != validation or rendered["attention_fwd"] % per_image \
-            or rendered["mas"] or rendered["attention_bwd"]:
-        raise AssertionError(f"training kernel launches: replayed {replayed}, eager {eager}; "
-                             f"expected {want} and {validation}")
-    counts = {n: replayed[n] + validation[n] for n in counters}
+    log(f"training path launches by graph replay {replayed} (expected {want}: micro-steps and "
+        f"{eval_replays} validation replays); eager {eager} (expected none); at capture and "
+        f"warm-up {captured}; validation images {rendered}")
+    if replayed != want or any(eager.values()) or eval_replays != epochs * val_batches \
+            or rendered["attention_fwd"] % per_image or rendered["mas"] \
+            or rendered["attention_bwd"]:
+        raise AssertionError(f"training kernel launches: replayed {replayed}, eager {eager}, "
+                             f"{eval_replays} validation replays; expected {want}, none eager "
+                             f"and {epochs * val_batches} validation replays")
+    counts = replayed
     for r in runs:
         log(f"fit {r['precision']} to epoch {r['epochs']} at K={r['steps_per_dispatch']}: step "
             f"{r['step']}, {r['updates']} updates, {r['wall_s']:.1f} s, checkpoints "
-            f"{r['checkpoints']}, {len(r['graphs'])} graphs captured in "
-            f"{sum(g['capture_s'] for g in r['graphs']):.2f} s, replays {r['replays']}, pool "
+            f"{r['checkpoints']}, {len(r['graphs'])} training and {len(r['eval_graphs'])} "
+            f"validation graphs captured in "
+            f"{sum(g['capture_s'] for g in r['graphs'] + r['eval_graphs']):.2f} s, replays "
+            f"{r['replays']} and {r['eval_replays']} validation, pool "
             f"{r['pool_bytes']} bytes, train loss {[round(t['train/loss'], 4) for t in r['train']]}"
             f", val loss {[round(v['val/loss'], 4) for v in r['val']]}")
         losses = [t[k] for t in r["train"] for k in t] + [v[k] for v in r["val"] for k in v]
@@ -1412,6 +1448,65 @@ def time_micro_steps(dev, mcfg, seed, root, groups, graph_reps=20, eager_reps=10
     return res
 
 
+VALIDATION_ITEMS = 64  # a validation pass of 4 batches of 16, timed eager and replayed
+
+
+def validation_graphs(dev, mcfg, seed, root, reps=5):
+    """`Trainer.validate` on the validation graphs against the same batches
+    eagerly on the same weights, in an fp32 and a bf16 trainer (validation
+    runs the f32 U-Net in both) after one training replay has put its graph
+    in the pool: val/loss and its parts within TOL_STEP fp32 (rtol 2e-5); the
+    graphs' launches a validation batch (MAS 1, K1 6) at capture and warm-up,
+    and a validation pass under the profiler, whose K1 and MAS kernels equal
+    what the graph accounting added (no wrapper ticking); the median walls of
+    `reps` passes eager and replayed, each ended by a synchronise."""
+    from matcha_tpu_torch.data.dataset import SyntheticDataset, batch_iterator, num_batches
+    from matcha_tpu_torch.train.trainer import METRICS, TrainConfig, Trainer
+
+    train_ds, _, dcfg = training_data(mcfg)
+    val_ds = SyntheticDataset(n_items=VALIDATION_ITEMS, n_mels=mcfg.n_feats, seed=1)
+    batches = num_batches(VALIDATION_ITEMS, dcfg, drop_last=False)
+    first = next(iter(batch_iterator(train_ds, dcfg, epoch=0)))
+    first.pop("n_real")
+    names = METRICS[:4]
+    res = {}
+    for precision in ("fp32", "bf16"):
+        trainer = Trainer(mcfg, TrainConfig(ckpt_dir=str(root / f"val_{precision}"), seed=seed,
+                                            precision=precision), dcfg, device=dev)
+        trainer.init_optimizer(8)
+        trainer.dispatch([(first, 0)], 0)
+        eager = trainer.validate(val_ds, 1, eager=True)
+        graph = trainer.validate(val_ds, 1)
+        gap = metric_gap(torch.tensor([[graph[k] for k in names]], dtype=torch.float64),
+                         torch.tensor([[eager[k] for k in names]], dtype=torch.float64),
+                         f"validation graphs vs eager {precision}")
+        check_graph_launches(trainer, mcfg)
+        prof = replay_accounting(trainer, lambda: trainer.validate(val_ds, 1),
+                                 f"validation pass {precision}")
+        per_pass = {n: batches * c for n, c in per_validation_batch(mcfg).items()}
+        if prof["launches_per_replay"] != per_pass or trainer.eval_replays != 2 * batches:
+            raise AssertionError(f"validation pass {precision}: launches "
+                                 f"{prof['launches_per_replay']}, expected {per_pass}; "
+                                 f"{trainer.eval_replays} replays")
+        walls = {"eager": synced_walls(lambda: trainer.validate(val_ds, 1, eager=True), reps),
+                 "graph": synced_walls(lambda: trainer.validate(val_ds, 1), reps)}
+        res[precision] = {
+            "val": {"graph": graph, "eager": eager}, "gap": gap, "batches": batches,
+            "eval_graphs": [{"key": list(k), "capture_s": g.capture_s}
+                            for k, g in trainer.eval_graphs.items()],
+            "launches_per_pass": prof["launches_per_replay"], "busy_ms": prof["device_ms"],
+            "profiled_wall_ms": prof["wall_ms"],
+            "wall_ms_median": {k: float(np.median(v)) for k, v in walls.items()},
+            "wall_ms": walls}
+        log(f"validation {precision} trainer, graphs vs eager on the same weights "
+            f"({VALIDATION_ITEMS} items, {batches} batches, {len(trainer.eval_graphs)} graphs): "
+            f"{gap} (bar rtol, atol {TOL_STEP['fp32']}); launches a pass "
+            f"{prof['launches_per_replay']} by the profiler = by the accounting; a pass median "
+            f"{res[precision]['wall_ms_median']} ms, busy {prof['device_ms']}")
+        del trainer
+    return res
+
+
 def train_graph_checks(dev, mcfg, seed, root):
     """The training graphs at full width: against eager steps, K-independence,
     remat, the profile trace, and the micro-step times."""
@@ -1421,6 +1516,7 @@ def train_graph_checks(dev, mcfg, seed, root):
     res["graphs_vs_eager"] = graphs_vs_eager(dev, mcfg, seed, root, groups)
     res["k_independence"] = k_independence(dev, mcfg, seed, root, train_ds, val_ds, dcfg)
     res["remat"] = remat_replays(dev, mcfg, seed, root, groups)
+    res["validation"] = validation_graphs(dev, mcfg, seed, root)
     res["micro_steps"] = time_micro_steps(dev, mcfg, seed, root, groups)
     return res
 
@@ -1779,18 +1875,24 @@ def vocoder_fit(trainer, train_ds, val_ds, epochs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     replayed = sum(k * n for k, n in trainer.replays.items())
-    launches = [g.launches for g in trainer.graphs.values()]
+    launches = [g.launches for g in list(trainer.graphs.values())
+                + list(trainer.eval_graphs.values())]
+    # one validation batch an epoch, each a replay of the one validation graph
+    epochs_run = (step - start) // (len(train_ds) // trainer.data_cfg.batch_size)
     if trainer.eager_steps or replayed != step - start or mrf_step.launches != before_k2 \
-            or any(any(c.values()) for c in launches):
+            or any(any(c.values()) for c in launches) or trainer.eval_replays != epochs_run \
+            or len(trainer.eval_graphs) != 1:
         raise AssertionError(f"fit from step {start} to {step}: {replayed} steps replayed, "
-                             f"{trainer.eager_steps} eager, K2 {mrf_step.launches - before_k2}, "
-                             f"kernel launches in the graphs {launches}")
+                             f"{trainer.eager_steps} eager, {trainer.eval_replays} validation "
+                             f"replays of {len(trainer.eval_graphs)} graphs for {epochs_run} "
+                             f"epochs, K2 {mrf_step.launches - before_k2}, kernel launches in "
+                             f"the graphs {launches}")
     train_rows, val_rows = read_metrics(trainer.train_cfg.ckpt_dir, VOC_KEYS)
     values = [r[k] for r in train_rows + val_rows for k in r if k.startswith(("train/", "val/"))]
     if not train_rows or not val_rows or not all(math.isfinite(v) for v in values):
         raise AssertionError(f"fit to step {step}: missing or non-finite metrics")
     return {"step": step, "wall_s": wall, "eager_steps": trainer.eager_steps,
-            **graph_summary(trainer),
+            "epochs_run": epochs_run, **graph_summary(trainer),
             "checkpoints": [e["step"] for e in trainer.checkpoints.entries],
             "train": train_rows, "val": val_rows}
 
@@ -1825,7 +1927,8 @@ def vocoder_fit_runs(dev, seed, root, hcfg, disc_kw, dcfg, train_ds, val_ds):
     for name, r in runs.items():
         if "train" in r:
             log(f"vocoder fit {name}: step {r['step']} in {r['wall_s']:.1f} s, replays "
-                f"{r['replays']}, eager steps {r['eager_steps']}, graphs "
+                f"{r['replays']}, eager steps {r['eager_steps']}, validation replays "
+                f"{r['eval_replays']} in {r['epochs_run']} epochs, graphs "
                 f"{[(g['key'], round(g['capture_s'], 2)) for g in r['graphs']]}, pool "
                 f"{r['pool_bytes']} bytes, checkpoints {r['checkpoints']}, g_loss "
                 f"{[round(t['train/g_loss'], 3) for t in r['train']]}, val mel_l1 "
@@ -1863,6 +1966,32 @@ def vocoder_graphs_vs_eager(dev, seed, root, hcfg, disc_kw, dcfg, train_ds, runs
         f"start): K=1 replays {res['k1_replays']}, K=4 replay {res['k4_replay']}, parameters "
         f"{res['params']} (bars: rtol, atol {TOL_STEP['fp32']}; < {3 * lr}, < 2 %); a second "
         f"eager run vs the first: {res['eager_again']}")
+    return res
+
+
+def vocoder_validation(dev, seed, root, hcfg, disc_kw, dcfg, val_ds, reps=5):
+    """`VocoderTrainer.validate` on its graph against the same batches eagerly
+    on the same weights (TOL_STEP fp32, the bar of its GAN-step replays
+    against eager); the median walls of `reps` passes of each, each ended by
+    a synchronise."""
+    t = vocoder_trainer(dev, root / "voc_val", 1, seed, hcfg, disc_kw, dcfg)
+    t.init_optimizers(4)
+    eager = t.validate(val_ds, eager=True)
+    graph = t.validate(val_ds)
+    gap = metric_gap(torch.tensor([[graph]], dtype=torch.float64),
+                     torch.tensor([[eager]], dtype=torch.float64),
+                     "vocoder validation graph vs eager")
+    walls = {"eager": synced_walls(lambda: t.validate(val_ds, eager=True), reps),
+             "graph": synced_walls(lambda: t.validate(val_ds), reps)}
+    res = {"mel_l1": {"graph": graph, "eager": eager, **gap},
+           "eval_graphs": len(t.eval_graphs), "eval_replays": t.eval_replays,
+           "wall_ms_median": {k: float(np.median(v)) for k, v in walls.items()},
+           "wall_ms": walls}
+    if res["eval_graphs"] != 1 or res["eval_replays"] != 1 + reps:
+        raise AssertionError(f"vocoder validation: {res}")
+    log(f"vocoder validation, graph vs eager ({len(val_ds)} items): mel L1 {graph} vs {eager} "
+        f"({gap}; bar rtol, atol {TOL_STEP['fp32']}); a pass median {res['wall_ms_median']} ms")
+    del t
     return res
 
 
@@ -2031,6 +2160,7 @@ def vocoder_train_path(dev, mcfg, seed, root, hcfg, disc_kw=None, segment=8192):
            "graphs_vs_eager": vocoder_graphs_vs_eager(dev, seed, root, *args, train_ds, runs,
                                                       params)}
     del params
+    res["validation"] = vocoder_validation(dev, seed, root, *args, val_ds)
     res["step_times"] = vocoder_step_times(dev, seed, root, *args, train_ds)
     res["card_vs_cpu"] = vocoder_card_vs_cpu(dev, seed, root, hcfg, disc_kw, segment)
     res["serve"] = vocoder_serve_loop(dev, mcfg, hcfg, seed, root / "voc")
@@ -2367,6 +2497,235 @@ def entry_points(dev, mcfg, hcfg, seed, root):
     return res
 
 
+# ---------------------------------------------------------------- batch-16 serving
+# a loaded `serve()` forms batches of the engine's default max_batch, 16; at the
+# 512-frame budget (the only one configured, so the batch always decodes there)
+BATCH16_BUDGET = 512
+BATCH16_TEXTS = TEXTS + SERVE_CLI_TEXTS + [
+    "A pot of tea helps to pass the evening.",
+    "The box was thrown beside the parked truck.",
+    "Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch.",
+    "The hogs were fed chopped corn and garbage.",
+    "Smoky fires lack flame and heat.",
+    "The soft cushion broke the man's fall.",
+    "The salt breeze came across from the sea.",
+]
+
+
+def serve_batch16(dev, mcfg, hcfg, seed, reps=5):
+    """One full-width batch of 16 texts through `TTSEngine.synthesise` at
+    budget 512 on the graphs of a bf16 HiFi-GAN engine (int16 output), the
+    counts set to 0 just before and read just after: one decode replay, K1 60
+    and K2 36, none eager; waveforms finite, non-silent, of their lengths;
+    the median wall of `reps` more batches and one profiled replay (the
+    profiler's K1 and K2 equal the graph accounting)."""
+    from matcha_tpu_torch.serve import ServeConfig, TTSEngine
+
+    msd, gsd = model_weights(mcfg, hcfg, seed)
+    scfg = ServeConfig(bf16=True, vocoder="hifigan", output_dtype="int16",
+                       mel_budgets=(BATCH16_BUDGET,))
+    engine = TTSEngine(msd, mcfg, scfg, gsd, hcfg, device=dev)
+    texts, seeds = BATCH16_TEXTS, list(range(300, 300 + len(BATCH16_TEXTS)))
+    if len(texts) != scfg.max_batch:
+        raise AssertionError(f"{len(texts)} texts for a max_batch of {scfg.max_batch}")
+    warm = warm_engine(engine, [((len(texts),), max(texts, key=len))])
+    reset_serving_counts(engine)
+    wavs, info = engine.synthesise(texts, seeds=seeds)
+    counts, eager = dict(engine.launches), wrapper_counts()
+    want = {"attention_fwd": scfg.n_timesteps * sum(n for n, _ in
+                                                    attention_shapes(mcfg.decoder, 1)),
+            "mrf_step": len(mrf_shapes(hcfg, 1))}
+    log(f"batch-16 serving launches by graph replay {counts} (expected {want}); eager "
+        f"{eager} (expected none)")
+    if counts != want or any(eager.values()) or info["budget"] != BATCH16_BUDGET:
+        raise AssertionError(f"batch of 16: launches {counts} replayed, {eager} eager, budget "
+                             f"{info['budget']}; expected {want}, none, {BATCH16_BUDGET}")
+    for wav, ml in zip(wavs, info["mel_lengths"]):
+        if wav.dtype != np.int16 or wav.shape != (ml * 256,) or ml < 8 \
+                or np.abs(wav).max() == 0:
+            raise AssertionError(f"batch of 16: waveform {wav.dtype} {wav.shape} for {ml} frames")
+    walls = [engine.synthesise(texts, seeds=seeds)[1]["wall_s"] * 1e3 for _ in range(reps)]
+    prof = replay_profile(engine, lambda: engine.synthesise(texts, seeds=seeds),
+                          "synthesise, 16 texts (HiFi-GAN, bf16)")
+    res = {"budget": info["budget"], "mel_lengths": info["mel_lengths"],
+           "truncated": info["truncated"], "launches": counts, "warmup": warm,
+           "wall_ms_median": float(np.median(walls)), "wall_ms": walls, "rtf": info["rtf"],
+           "profile": prof}
+    log(f"batch of 16 at budget {res['budget']}: {sum(info['truncated'])} truncated, wall median "
+        f"{res['wall_ms_median']:.2f} ms over {reps}, busy {prof['device_ms']:.2f} ms")
+    return res
+
+
+# ---------------------------------------------------------------- FFN variants
+FFN_SHAPE = (2, 448)  # (B, T) of the variant blocks' input: a training batch's longest T
+
+
+def ffn_variants_on_card(dev, mcfg, seed):
+    """Each feed-forward variant's decoder block at full width (the decoder's
+    channels, heads and head width) on the card against the same block on the
+    CPU, float32 with TF32 off, on a ragged 0/1 key mask: one K1 launch a
+    block, within K1's float32 bar (TOL float32)."""
+    from matcha_tpu_torch.nn.transformer import ACTIVATIONS, BasicTransformerBlock
+    from matcha_tpu_torch.ops.attention import attention
+
+    dcfg = mcfg.decoder
+    dim = dcfg.channels[0]
+    b, t = FFN_SHAPE
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, t, dim), generator=gen)
+    mask = (torch.arange(t)[None, :] < torch.tensor([t, t - 97])[:, None]).float()
+    atol, rtol = TOL["float32"]
+    res = {}
+    for act in ACTIVATIONS:
+        blk = BasicTransformerBlock(dim, dcfg.num_heads, dcfg.attention_head_dim,
+                                    activation_fn=act).eval()
+        blk.load_state_dict(module_weights(blk, seed))
+        with torch.no_grad():
+            want = blk(x, mask)
+            blk.to(dev)
+            before = attention.launches
+            got = blk(x.to(dev), mask.to(dev))
+            launches = attention.launches - before
+        err = max_err_within(got.cpu(), want, atol, rtol, f"FFN {act} block, card vs CPU")
+        if launches != 1:
+            raise AssertionError(f"FFN {act} block: {launches} K1 launches, expected 1")
+        res[act] = {"max_abs_err": err, "k1_launches": launches}
+    log(f"decoder block by feed-forward variant at {[b, t, dim]}, card vs CPU (f32, TF32 off): "
+        f"{ {a: r['max_abs_err'] for a, r in res.items()} } (bar atol {atol}, rtol {rtol}); "
+        f"K1 once each")
+    return res
+
+
+# ---------------------------------------------------------------- examples
+def load_example(name):
+    """The module of `examples/<name>.py`."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def demo_run(dev, seed, out_dir):
+    """`examples/demo_torch.py` at full width on the card (no --device), the
+    counts set to 0 just before and read just after, against the same calls
+    made here with its models, text and seed (also counted): equal launches
+    (K1 60 for 10 Euler steps, K2 36 for HiFi-GAN, none for Griffin-Lim), the
+    mel within K1's f32 bar, the waveforms within K2's f32 bar (HiFi-GAN)
+    and K1's (Griffin-Lim, on that mel); its wavs written."""
+    from matcha_tpu_torch.audio.griffin_lim import mel_to_audio
+    from matcha_tpu_torch.audio.mel import MelConfig
+    from matcha_tpu_torch.ops.masks import fix_len_compatibility
+    from matcha_tpu_torch.text import simple_text_to_sequence
+
+    demo = load_example("demo_torch")
+    reset_wrapper_counts()
+    t0 = time.perf_counter()
+    res = demo.main(["--out", str(out_dir), "--seed", str(seed)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = wrapper_counts()
+
+    model, vocoder = res["model"], res["vocoder"]
+    seq = simple_text_to_sequence(demo.DEFAULT_TEXT)
+    reset_wrapper_counts()
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        enc = model.encode_durations(torch.tensor([seq], device=dev),
+                                     torch.tensor([len(seq)], device=dev))
+        budget = fix_len_compatibility(max(int(enc[3].max()), 4))
+        ref = model.decode_fixed(*enc, budget, 10, 0.667, generator=gen)
+        mel = ref["mel"][:, :int(ref["mel_lengths"][0])]
+        wavs = {"griffin_lim": mel_to_audio(MelConfig(n_mels=model.cfg.n_feats),
+                                            mel.transpose(1, 2), generator=gen),
+                "hifigan": torch.clamp(vocoder(mel), -1.0, 1.0)}
+    direct = wrapper_counts()
+    want = {"attention_fwd": 10 * sum(c for c, _ in attention_shapes(model.cfg.decoder, budget)),
+            "mrf_step": len(mrf_shapes(vocoder.cfg, 1))}
+    if counts != direct or counts != want or res["budget"] != budget:
+        raise AssertionError(f"demo_torch: launches {counts}, the direct calls' {direct}, "
+                             f"expected {want}; budget {res['budget']} vs {budget}")
+    errs = {"mel": max_err_within(res["mel"], mel, *TOL["float32"], "demo_torch mel"),
+            "hifigan": max_err_within(res["wavs"]["hifigan"], wavs["hifigan"], *TOL_MRF_F32,
+                                      "demo_torch HiFi-GAN waveform"),
+            "griffin_lim": max_err_within(res["wavs"]["griffin_lim"], wavs["griffin_lim"],
+                                          *TOL["float32"], "demo_torch Griffin-Lim waveform")}
+    written = sorted(p.name for p in Path(out_dir).iterdir())
+    if not {"demo_griffin_lim.wav", "demo_hifigan.wav"} <= set(written):
+        raise AssertionError(f"demo_torch wrote {written}")
+    log(f"demo_torch at full width on the card: {res['frames']} frames at budget {budget}, "
+        f"wall {wall:.2f} s, RTF {res['rtf']}, launches {counts} = the direct calls'; against "
+        f"them: {errs}; wrote {written}")
+    return {"frames": res["frames"], "budget": budget, "wall_s": wall, "rtf": res["rtf"],
+            "launches": counts, "max_abs_err": errs, "written": written}
+
+
+def demo_serving_run(dev, seed, out_dir):
+    """`examples/demo_serving_torch.py --bf16` at full width on the card (no
+    --device; HiFi-GAN), the counts set to 0 just before and read just after,
+    its engine recorded; then a fresh engine on the same weights and config
+    driven directly through the same calls (warm-up, the batch, the
+    low-latency request, the 4 concurrent `serve()` requests), counted the
+    same way: equal launches replayed and at capture (none eager besides the
+    captures), one serve() group of 4 in both, every wav bit-equal."""
+    from matcha_tpu_torch import serve as serve_mod
+
+    demo = load_example("demo_serving_torch")
+    engines, base = [], serve_mod.TTSEngine
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    serve_mod.TTSEngine = Recorded
+    try:
+        reset_wrapper_counts()
+        t0 = time.perf_counter()
+        res = demo.main(["--out", str(out_dir), "--seed", str(seed), "--bf16"])
+        wall = time.perf_counter() - t0
+        demo_eager = wrapper_counts()
+    finally:
+        serve_mod.TTSEngine = base
+    (engine,) = engines
+    demo_replayed = dict(engine.launches)
+
+    direct = base(res["params"], engine.model.cfg, engine.cfg, res["vocoder_params"],
+                  engine.vocoder.cfg, device=dev, seed=seed)
+    reset_wrapper_counts()
+    direct.warmup(batch_sizes=(1, len(demo.TEXTS)),
+                  text=max(demo.TEXTS + [demo.LOWLATENCY_TEXT], key=len))
+    wavs, _ = direct.synthesise(demo.TEXTS, seeds=res["seeds"])
+    wav_ll, _ = direct.synthesise_lowlatency(demo.LOWLATENCY_TEXT, seed=seed)
+    served = demo.serve_concurrently(direct, demo.TEXTS, res["seeds"])
+    direct_eager, direct_replayed = wrapper_counts(), dict(direct.launches)
+    captured = {n: sum(2 * st.launches[n] for st in engine._stages.values()) for n in demo_eager}
+    groups = [[i["group_size"] for _, i in r] for r in (res["served"], served)]
+    pairs = (list(zip(res["batch"][0], wavs)) + [(res["lowlatency"][0], wav_ll)]
+             + [(a[0], b[0]) for a, b in zip(res["served"], served)])
+    equal = all(a.shape == b.shape and np.array_equal(a, b) for a, b in pairs)
+    if demo_replayed != direct_replayed or demo_eager != direct_eager \
+            or demo_eager != captured or groups != [[4] * 4] * 2 or not equal:
+        raise AssertionError(f"demo_serving_torch: replayed {demo_replayed} vs direct "
+                             f"{direct_replayed}, eager {demo_eager} vs direct {direct_eager} "
+                             f"(captures {captured}), serve() groups {groups}, wavs equal {equal}")
+    log(f"demo_serving_torch at full width on the card (bf16, HiFi-GAN): wall {wall:.2f} s, "
+        f"{len(engine._stages)} graphs; launches replayed {demo_replayed}, at capture "
+        f"{demo_eager}, equal to the direct engine calls'; serve() one group of 4; "
+        f"{len(pairs)} wavs bit-equal to the direct calls")
+    return {"wall_s": wall, "graphs": len(engine._stages), "launches_replayed": demo_replayed,
+            "launches_at_capture": demo_eager, "batch": res["batch"][1],
+            "lowlatency": res["lowlatency"][1], "serve_budgets": [i["budget"] for _, i in served]}
+
+
+def demos(dev, seed, root):
+    """Both examples at full width on the card."""
+    return {"demo_torch": demo_run(dev, seed, root / "demo"),
+            "demo_serving_torch": demo_serving_run(dev, seed, root / "demo_serving")}
+
+
 # ---------------------------------------------------------------- phase 5
 # ---------------------------------------------------------------- parallel
 # the decoder's attention at the 512-frame budget of the 4-text request: (B, T)
@@ -2456,8 +2815,9 @@ def step_walls(trainer, batch, reps=20):
 def parallel_training(dev, mcfg, seed, root):
     """`fit` (one epoch at K = 2, fp32) on a data group and with the
     tensor-parallel path at model = 1, each against a trainer without a group
-    from the same seed: every micro-step a replay with its all-reduces
-    captured, launches per micro-step and validation as without a group,
+    from the same seed: every micro-step and validation batch a replay with
+    its all-reduces captured, launches per micro-step and validation as
+    without a group,
     logged metrics and final parameters within the training graphs' bars.
     Then a micro-step's median replayed wall with and without the group."""
     from matcha_tpu_torch.data.dataset import batch_iterator, num_batches
@@ -2472,23 +2832,23 @@ def parallel_training(dev, mcfg, seed, root):
     walls = {"none": step_walls(ref, batch)}
     micro = num_batches(BUCKET_ITEMS, dcfg)
     val_batches = num_batches(VAL_ITEMS, dcfg, drop_last=False)
-    step_launches = per_micro_step(mcfg)
-    want = {n: micro * c for n, c in step_launches.items()}
-    validation = {"mas": val_batches, "attention_fwd": val_batches * step_launches["attention_fwd"],
-                  "attention_bwd": 0}
+    step_launches, val_launches = per_micro_step(mcfg), per_validation_batch(mcfg)
+    want = {n: micro * c + val_batches * val_launches[n] for n, c in step_launches.items()}
     total, runs = {}, {}
     for name, model in (("dp", None), ("tp", 1)):
         mesh = make_mesh(model=model)
         trainer, ticks = counting(lambda: par_fit(dev, mcfg, seed, root, f"par_{name}", mesh))
         check_graph_launches(trainer, mcfg)
-        captured = {n: sum(g.launches[n] + g.warmup_launches[n] for g in trainer.graphs.values())
+        captured = {n: sum(g.launches[n] + g.warmup_launches[n] for g in
+                           list(trainer.graphs.values()) + list(trainer.eval_graphs.values()))
                     for n in trainer.launches}
         eager = {n: ticks[n] - captured[n] for n in trainer.launches}
-        if dict(trainer.launches) != want or eager != validation or ticks["mrf_step"] \
-                or 2 not in trainer.replays:
-            raise AssertionError(f"{name}: replayed {trainer.launches}, eager {eager}; "
-                                 f"expected {want} and {validation}")
-        add_counts(total, {n: trainer.launches[n] + eager[n] for n in trainer.launches})
+        if dict(trainer.launches) != want or any(eager.values()) or ticks["mrf_step"] \
+                or 2 not in trainer.replays or trainer.eval_replays != val_batches:
+            raise AssertionError(f"{name}: replayed {trainer.launches}, eager {eager}, "
+                                 f"{trainer.eval_replays} validation replays; expected {want}, "
+                                 f"none eager and {val_batches} validation replays")
+        add_counts(total, dict(trainer.launches))
         gaps = {p: metric_gap(metric_rows(root / f"par_{name}", p), want_rows[p],
                               f"{name} {p} logs") for p in ("train/", "val/")}
         runs[name] = {"mesh": mesh.shape, "tensor_parallel": trainer._tp is not None,
@@ -2792,6 +3152,7 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, path="serve", dtype=torch.bflo
                 "count": vocoder_calls, "launches": vocoder_calls, "max_abs_err": err, "flops": flops, "bytes": nbytes,
                 "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
                 "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
+                "unfused_ms": cuda_ms(lambda: mrf_step_unfused(*args, dil), reps),
                 "library_ms": None,
                 # the launch's tiling; its shared memory is dynamic, so ptxas does not show it
                 "plan": mrf_plan(b, c, t, k, dil, elt, sms).__dict__})
@@ -2813,6 +3174,8 @@ def log_rows(rows):
             r["bound_by"] = max(parts, key=parts.get)
             r["bound_ms"] = parts[r["bound_by"]]
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f}"
+            if "unfused_ms" in r:
+                lib += f", unfused {r['unfused_ms']:.4f}"
             kd = f" k={r['k']} d={r['d']}" if "k" in r else ""
             plan = f", plan {r['plan']}" if "plan" in r else ""
             log(f"{name} {r['path']} {r.get('request', '')} {r['dtype']} {r['shape']}{kd} "
@@ -2868,6 +3231,8 @@ def kernel_line(rows, errs, launches, work):
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": parts[bound_by], "bound_by": bound_by, "bound_parts_ms": parts,
             "library_ms": None if any(r["library_ms"] is None for r in rs) else total("library_ms"),
+            **({"unfused_ms": total("unfused_ms")}
+               if rs and all("unfused_ms" in r for r in rs) else {}),
             "launches_by_path": by_path,
             "work": "; ".join(f"{path}: {work[path]}" for path in by_path)})
     return {"kernels": kernels}
@@ -2961,17 +3326,24 @@ def main(argv=None) -> int:
     log({"engine": engine})
     engine_gl = serve_griffin_lim(dev, mcfg, args.seed)
     log({"engine_griffin_lim": engine_gl})
+    serve16 = serve_batch16(dev, mcfg, hcfg, args.seed)
+    ffn = ffn_variants_on_card(dev, mcfg, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         training = train_main_path(dev, mcfg, args.seed, Path(tmp))
         train_graphs = train_graph_checks(dev, mcfg, args.seed, Path(tmp))
         vocoder = vocoder_train_path(dev, mcfg, args.seed, Path(tmp), hcfg)
         entry = entry_points(dev, mcfg, hcfg, args.seed, Path(tmp))
+        examples = demos(dev, args.seed, Path(tmp))
         par = parallel_path(dev, mcfg, hcfg, args.seed, Path(tmp))
         e2e = {"card_vs_cpu": card_vs_cpu(dev, mcfg, hcfg, args.seed),
                "golden": golden_on_card(dev),
                "train_card_vs_cpu": train_card_vs_cpu(dev, mcfg, args.seed)}
         requests = main_path_requests(engine)
         rows = time_kernels(dev, mcfg, hcfg, args.seed, requests)
+        requests16 = [("synthesise", len(serve16["mel_lengths"]), serve16["budget"],
+                       serve16["mel_lengths"])]
+        for name, rs in time_kernels(dev, mcfg, hcfg, args.seed, requests16, "serve16").items():
+            rows[name].extend(rs)
         requests_gl = main_path_requests(engine_gl)
         for name, rs in time_kernels(dev, mcfg, None, args.seed, requests_gl, "serve_gl",
                                      torch.float32).items():
@@ -3007,11 +3379,13 @@ def main(argv=None) -> int:
     serve_gl_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                                  for req, b, budget, _ in requests_gl) + \
         ", f32, Griffin-Lim, CUDA graphs"
+    serve16_work = (f"synthesise, {len(serve16['mel_lengths'])} texts (the engine's max_batch) "
+                    f"at budget {serve16['budget']}, bf16, HiFi-GAN, CUDA graphs")
     train_work = (f"Trainer.fit at batch 16 on {TRAIN_ITEMS} synthetic items, "
                   f"{training['micro_steps_an_epoch']} micro-steps and "
                   f"{training['val_batches_an_epoch']} validation batch an epoch: fp32 1 epoch, "
                   f"bf16 1 epoch, bf16 resumed for a second at steps_per_dispatch 2 (validation "
-                  f"in fp32); micro-steps as CUDA graph replays, validation eager")
+                  f"in fp32); micro-steps and validation batches as CUDA graph replays")
     vocoder_work = (f"VocoderTrainer.fit at full width (batch 16 x 8192 samples, {VOC_ITEMS} "
                     f"synthetic items: 4 GAN steps an epoch) on CUDA graphs, no K2 in training; "
                     f"the trained generator folded and served, one low-latency request at "
@@ -3033,6 +3407,7 @@ def main(argv=None) -> int:
                 f"decode_fixed at one rank, 4 texts at budget {PAR_DECODE_BUDGET}, f32, "
                 f"{ENTRY_STEPS} steps")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
+                                    "serve16": serve16["launches"],
                                     "train": training["launches"],
                                     "vocoder": vocoder["launches"],
                                     "generate": generated["hifigan"]["launches"],
@@ -3040,7 +3415,8 @@ def main(argv=None) -> int:
                                     "vocoder_report": report["launches"],
                                     "bench_mas": {"mas": entry["bench_mas"]["launches"]},
                                     "parallel": par["launches"]},
-                       {"serve": serve_work, "serve_gl": serve_gl_work, "train": train_work,
+                       {"serve": serve_work, "serve_gl": serve_gl_work,
+                        "serve16": serve16_work, "train": train_work,
                         "vocoder": vocoder_work, "generate": generate_work,
                         "generate_gl": generate_gl_work, "vocoder_report": report_work,
                         "bench_mas": bench_work, "parallel": par_work})
@@ -3052,6 +3428,7 @@ def main(argv=None) -> int:
     args.out.write_text(json.dumps(
         {"card": smi, "build_s": build_s, "checks": errs, "mas_profile": mas_profile,
          "chain_step_ns": step_ns, "engine": engine, "engine_griffin_lim": engine_gl,
+         "serve_batch16": serve16, "ffn_variants": ffn, "examples": examples,
          "training": training, "train_graphs": train_graphs, "vocoder_training": vocoder,
          "entry_points": entry, "parallel": {k: v for k, v in par.items() if k != "training"},
          "parallel_training": {k: v for k, v in par["training"].items() if k != "batches"},

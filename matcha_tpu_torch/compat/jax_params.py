@@ -103,8 +103,15 @@ def _transformer(sd, name, p):
     _put(sd, f"{name}.attn1.to_out.0", _linear(a["to_out"]), a["to_out"])
     _norm(sd, f"{name}.norm3", p["LayerNorm_1"])
     ff = p["FeedForward_0"]
-    _put(sd, f"{name}.ff.net.0.proj", _linear(ff["Dense_0"]), ff["Dense_0"])
-    _put(sd, f"{name}.ff.net.2", _linear(ff["Dense_1"]), ff["Dense_1"])
+    if "SnakeBeta_0" in ff:  # the activation's own scope, then the output Dense
+        act, out = ff["SnakeBeta_0"], ff["Dense_0"]
+        _put(sd, f"{name}.ff.net.0.proj", _linear(act["Dense_0"]), act["Dense_0"])
+        sd[f"{name}.ff.net.0.alpha"] = _t(act["alpha"])
+        sd[f"{name}.ff.net.0.beta"] = _t(act["beta"])
+    else:  # gelu, gelu-approximate, geglu (the projection to 2 x hidden: value, gate)
+        act, out = ff["Dense_0"], ff["Dense_1"]
+        _put(sd, f"{name}.ff.net.0.proj", _linear(act), act)
+    _put(sd, f"{name}.ff.net.2", _linear(out), out)
 
 
 def _decoder(dec) -> Dict[str, torch.Tensor]:

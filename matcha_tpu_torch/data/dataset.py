@@ -6,7 +6,8 @@ arrays and the same batch schedule as the JAX package:
   * batches are bucketed by length and padded to static (Tx, Ty) shapes, Ty a
     multiple of the U-Net's 2**downsamples;
   * every process computes the same global schedule from length metadata and
-    loads its own `[process_index::process_count]` slice of each batch;
+    loads its own contiguous block of each batch (block `process_index` of
+    `process_count`);
   * `collate` guards the MAS precondition mel_frames >= text_tokens.
 
 Tokenization is the training path's: `english_cleaners`, then char -> id, no EOS.
@@ -283,7 +284,14 @@ def batch_iterator(dataset, cfg: DataConfig, epoch: int = 0, shuffle: bool = Tru
         rng.shuffle(buckets)
     for batch_idx, n_real in buckets:
         shape = pad_shapes(cfg, int(text_lens[batch_idx].max()), int(mel_lens[batch_idx].max()))
-        local_idx = batch_idx[process_index::process_count]
+        # Block `process_index` of the global batch, the rows that `draw_rows`
+        # gives this rank's noise, crops and dropout: world n then trains as
+        # world 1 at the global batch, which is what the JAX package's
+        # single-process `make_mesh(data=n)` does. This departs on purpose from
+        # the JAX package's multi-host pairing, a strided cut
+        # (`matcha_tpu/data/dataset.py:328`, `parallel/mesh.py:116-130`).
+        b = cfg.batch_size
+        local_idx = batch_idx[process_index * b:(process_index + 1) * b]
         batch = collate([dataset.get(int(i)) for i in local_idx], cfg, shape=shape)
         batch["n_real"] = n_real
         yield batch

@@ -191,7 +191,7 @@ def replicated(module: torch.nn.Module, group=None) -> torch.nn.Module:
 
 
 def put_global_batch(mesh: Optional[Mesh], batch: dict, device=None) -> dict:
-    """This rank's local batch (the `[index::count]` cut of the data path,
+    """This rank's local batch (its block of rows of the global batch,
     padded to the global batch's shapes) as tensors on its device: the
     mesh's, or `device` without a mesh."""
     dev = mesh.device if mesh is not None else torch.device(device or "cuda")

@@ -43,9 +43,17 @@ offsets, dropout) comes from generators seeded by (seed + 1, e, i), and of
 validation batch i by (seed + 2, e, i): a run's trajectory depends neither
 on where it was resumed nor on K.
 
+Validation (`validate`, the JAX trainer's jitted `make_eval_step`): on the
+card each batch replays the CUDA graph of its shapes (captured at first use
+in the same way, after an eager run on a side stream), its CFM noise from a
+generator that the graphs register and the host seeds before each replay;
+the batch losses, weighted by their distinct items, are summed on the
+device and read once an epoch. A capture or replay failure raises. On CPU
+tensors the batches run eagerly; `eval_step` runs one batch eagerly.
+
 Several ranks (`Trainer(mesh=...)`, `parallel/`): every rank builds the model
 from the seed and takes rank 0's weights (a broadcast); each loads its
-`[index::count]` cut of every global batch (its data index and count), draws
+contiguous block of every global batch (block `index` of `count`), draws
 the noise and dropout of the global batch and keeps its rows, and divides its
 losses by the global batch's normalisers, so that the gradients summed over
 the data group (one all-reduce a micro-step, inside the micro-step and so
@@ -84,7 +92,6 @@ from matcha_tpu_torch.parallel.mesh import (
     batch_rows,
     batch_sum,
     is_main,
-    put_global_batch,
     rank,
     replicated,
 )
@@ -97,6 +104,7 @@ COUNTED = {"attention_fwd": attention, "attention_bwd": attention_backward, "mas
 BATCH_KEYS = ("x", "x_lengths", "y", "y_lengths")
 # a micro-step's metrics, in the order of its (5,) output
 METRICS = ("dur_loss", "prior_loss", "diff_loss", "loss", "grad_norm")
+LOSSES = METRICS[:3]  # the losses that sum to "loss"
 # MAS implementations: the port has one (the fused kernel on CUDA tensors, the
 # plain version on CPU ones); "ref" names the plain one and is the CPU's
 MAS_IMPLS = ("auto", "pallas", "ref")
@@ -381,7 +389,7 @@ class _StepGraph:
 
     def __init__(self, owner, host: dict, fn, generators=()):
         dev = owner.device
-        self.k = host["rows"].shape[0]
+        self.k = host["rows"].shape[0] if "rows" in host else 1  # steps a replay runs
         self.inputs = {n: torch.empty(h.shape, dtype=h.dtype, device=dev) for n, h in host.items()}
         self._copy_in(host)
         saved = owner._snapshot()
@@ -498,10 +506,15 @@ class Trainer:
         # kernel launches made by this trainer's graph replays, by kernel
         self.launches = {name: 0 for name in COUNTED}
         self.replays: dict = {}  # K -> graph replays of K micro-steps
+        # validation: batch shapes -> _StepGraph in the same pool, the CFM
+        # noise's generator (registered with each), and their replays
+        self.eval_graphs: dict = {}
+        self._eval_noise = torch.Generator(device=self.device)
+        self.eval_replays = 0
 
     def init_optimizer(self, steps_per_epoch: int) -> AccumulatingAdamW:
-        """A fresh optimizer; the graphs, which read the old one's state by
-        address, are dropped."""
+        """A fresh optimizer; the training graphs, which read the old one's
+        state by address, are dropped."""
         self.optimizer = make_optimizer(self.train_cfg, steps_per_epoch, self.params,
                                         self._norm)
         self.graphs.clear()
@@ -548,7 +561,7 @@ class Trainer:
 
     def _state(self) -> list:
         opt = self.optimizer
-        return self.params + opt.acc + opt.mu + opt.nu
+        return self.params if opt is None else self.params + opt.acc + opt.mu + opt.nu
 
     @torch.no_grad()
     def _snapshot(self) -> list:
@@ -603,20 +616,57 @@ class Trainer:
                 if k != "grad_norm" or self.train_cfg.log_grad_norm}
 
     @torch.no_grad()
-    def eval_step(self, batch: dict, epoch: int, index: int) -> dict:
-        """Validation losses of one batch (dropout off, f32 U-Net), as 0-d tensors."""
-        noise_seed, _ = batch_seeds(self.train_cfg.seed + 2, epoch, index)
-        b = put_global_batch(self.mesh, {k: batch[k] for k in BATCH_KEYS}, self.device)
+    def _eval_losses(self, b: dict) -> torch.Tensor:
+        """The (4,) validation losses (`METRICS` but grad_norm; dropout off,
+        f32 U-Net) of the batch `b` (device tensors), the CFM noise from the
+        validation generator: the global batch's, under a mesh."""
         self.model.eval()
-        gen = torch.Generator(device=self.device).manual_seed(noise_seed)
-        names = ("dur_loss", "prior_loss", "diff_loss")
         with batch_rows(self._rows):
             out = self.model.compute_losses(b["x"], b["x_lengths"], b["y"], b["y_lengths"],
-                                            generator=gen)
-            values = batch_sum(torch.stack([out[k] for k in names]))
-        losses = dict(zip(names, values))
-        losses["loss"] = total_loss(losses)
-        return losses
+                                            generator=self._eval_noise)
+            losses = batch_sum(torch.stack([out[k] for k in LOSSES]))
+        return torch.cat([losses, total_loss(dict(zip(LOSSES, losses)))[None]])
+
+    def eval_dispatch(self, batch: dict, epoch: int, index: int,
+                      eager: bool = False) -> torch.Tensor:
+        """The (4,) validation losses of `batch`, validation batch `index` of
+        `epoch`, on the device: on the card a replay of the graph of its
+        shapes (captured at first use), unless `eager`; on the CPU eagerly.
+        Valid until the next dispatch."""
+        host = {n: host_tensor(batch[n], self.device) for n in BATCH_KEYS}
+        if eager or self._pool is None:  # no graph pool on the CPU
+            runner = _Eager(self.device, self._eval_losses)
+        else:
+            key = tuple(tuple(host[n].shape) for n in BATCH_KEYS)
+            runner = self.eval_graphs.get(key)
+            if runner is None:
+                runner = self.eval_graphs[key] = _StepGraph(self, host, self._eval_losses,
+                                                            [self._eval_noise])
+            self.eval_replays += 1
+        self._eval_noise.manual_seed(batch_seeds(self.train_cfg.seed + 2, epoch, index)[0])
+        out = runner.run(host)
+        for name, n in runner.launches.items():
+            self.launches[name] += n
+        return out
+
+    def eval_step(self, batch: dict, epoch: int, index: int) -> dict:
+        """Validation losses of one batch, run eagerly, as 0-d tensors."""
+        return dict(zip(METRICS, self.eval_dispatch(batch, epoch, index, eager=True)))
+
+    def validate(self, val_ds, epoch: int, eager: bool = False) -> dict:
+        """The epoch's validation losses, each batch weighted by its distinct
+        items: each batch through `eval_dispatch`, the weighted sum kept on
+        the device (float64) and read once."""
+        total, weight = None, 0
+        for vi, batch in enumerate(batch_iterator(val_ds, self.data_cfg, epoch=0, shuffle=False,
+                                                  drop_last=False, **self._data_shard())):
+            n_real = batch.pop("n_real")
+            losses = self.eval_dispatch(batch, epoch, vi, eager).double() * n_real
+            total = losses if total is None else total.add_(losses)
+            weight += n_real
+        if total is None:
+            return {"loss": float("inf")}
+        return dict(zip(METRICS, (total / weight).tolist()))
 
     # ------------------------------------------------------------------ fit
     def _data_shard(self) -> dict:
@@ -709,18 +759,8 @@ class Trainer:
         return step
 
     def _validate(self, val_ds, epoch: int, step: int, epoch_seconds: float) -> dict:
-        """Validation losses of the epoch, each batch weighted by its distinct
-        items, logged with the epoch's training seconds."""
-        val, weights = [], []
-        for vi, batch in enumerate(batch_iterator(val_ds, self.data_cfg, epoch=0, shuffle=False,
-                                                  drop_last=False, **self._data_shard())):
-            weights.append(batch.pop("n_real"))
-            val.append({k: float(v) for k, v in self.eval_step(batch, epoch, vi).items()})
-        if val:
-            w = np.asarray(weights, np.float64)
-            agg = {k: float(np.average([m[k] for m in val], weights=w)) for k in val[0]}
-        else:
-            agg = {"loss": float("inf")}
+        """`validate`, logged with the epoch's training seconds."""
+        agg = self.validate(val_ds, epoch)
         agg["epoch_seconds"] = epoch_seconds
         self.logger.log(step, agg, prefix="val/", epoch=epoch)
         return agg

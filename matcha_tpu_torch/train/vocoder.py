@@ -29,7 +29,10 @@ graph of K steps and a remainder step the 1-step graph: two graphs, captured
 at first use (`trainer._StepGraph`) after one eager run on a side stream
 whose optimizer updates are undone, in one memory pool per trainer. The step
 draws no randomness. A capture or replay failure raises. On CPU tensors the
-same steps run eagerly. Validation runs eagerly on both.
+same steps run eagerly. Validation (`validate`, the JAX trainer's jitted
+eval) replays one more graph on the card, of a validation batch's mel L1,
+captured at first use in the same way; the batches' L1 are summed on the
+device and read once an epoch. On the CPU it runs eagerly.
 
 Several ranks (`VocoderTrainer(mesh=...)`, `parallel/`): both networks are
 replicated (rank 0's weights, broadcast), every rank reads the global batch
@@ -267,6 +270,8 @@ class VocoderTrainer:
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self.replays: dict = {}  # K -> graph replays of K steps
         self.eager_steps = 0  # steps run eagerly (not counting a capture's warm-up)
+        self.eval_graphs: dict = {}  # validation: segment shape -> _StepGraph, same pool
+        self.eval_replays = 0
 
     def init_optimizers(self, steps_per_epoch: int):
         """Fresh optimizers; the graphs, which read the old ones' state by
@@ -285,6 +290,8 @@ class VocoderTrainer:
         return torch.stack([self._step(y, row) for y, row in zip(inputs["y"], inputs["rows"])])
 
     def _state(self) -> list:
+        if self.opt_g is None:
+            return list(self.gen.parameters()) + list(self.disc.parameters())
         return (self.opt_g.params + self.opt_d.params + self.opt_g.mu + self.opt_g.nu
                 + self.opt_d.mu + self.opt_d.nu)
 
@@ -335,13 +342,34 @@ class VocoderTrainer:
         for y in wav_batch_iterator(ds, replace(self.data_cfg, batch_size=b * n), **kw):
             yield np.ascontiguousarray(y[i * b: (i + 1) * b])
 
-    def validate(self, val_ds) -> float:
-        """The mean over validation batches of `eval_step` (inf without data)."""
-        if val_ds is None or len(val_ds) == 0:
-            return float("inf")
-        vals = [float(self.eval_step(torch.from_numpy(y).to(self.device)))
-                for y in self._batches(val_ds, epoch=0, shuffle=False, drop_last=False)]
-        return float(np.mean(vals)) if vals else float("inf")
+    def eval_dispatch(self, y: np.ndarray, eager: bool = False) -> torch.Tensor:
+        """`eval_step` of the (B, T) segments y, 0-d on the device: on the
+        card a replay of the graph of y's shape (captured at first use),
+        unless `eager`; on the CPU eagerly. Valid until the next dispatch."""
+        host = {"y": host_tensor(y, self.device)}
+        if eager or self._pool is None:  # no graph pool on the CPU
+            runner = _Eager(self.device, self._eval_inputs)
+        else:
+            runner = self.eval_graphs.get(y.shape)
+            if runner is None:
+                runner = self.eval_graphs[y.shape] = _StepGraph(self, host, self._eval_inputs)
+            self.eval_replays += 1
+        return runner.run(host)
+
+    def _eval_inputs(self, inputs: dict) -> torch.Tensor:
+        return self.eval_step(inputs["y"])
+
+    def validate(self, val_ds, eager: bool = False) -> float:
+        """The mean over validation batches of `eval_step` (inf without data),
+        each batch through `eval_dispatch`, summed on the device (float64) and
+        read once."""
+        total, n = None, 0
+        if val_ds is not None and len(val_ds):
+            for y in self._batches(val_ds, epoch=0, shuffle=False, drop_last=False):
+                val = self.eval_dispatch(y, eager).double()
+                total = val if total is None else total.add_(val)
+                n += 1
+        return float(total) / n if n else float("inf")
 
     def fit(self, train_ds, val_ds=None, max_epochs: Optional[int] = None,
             resume: bool = True) -> int:

@@ -11,13 +11,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import matcha_tpu_torch
 
 names = ["matcha_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(matcha_tpu_torch.__path__, "matcha_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the scripts beside the package: the chip check and the examples
+scripts = ["chip_smoke.py", "examples/demo_torch.py", "examples/demo_serving_torch.py"]
+for path in scripts:
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("SCRIPTS", len(scripts))
 leaked = sorted(n for n in sys.modules
                 if n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
                 or n == "matcha_tpu" or n.startswith("matcha_tpu."))
@@ -45,9 +51,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "LEAKED []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES ")[1].split()[0])
     assert n_modules >= 20  # every module of the package, not just its root
+    assert "SCRIPTS 3" in out.stdout, out.stdout
 
 
 _NO_CUDA = r"""
+import sys
 import torch
 from matcha_tpu_torch import resolve_device
 from matcha_tpu_torch.models.hifigan import Generator, HiFiGANConfig
@@ -63,6 +71,9 @@ from matcha_tpu_torch.cli import (bench_mas, bench_scaling, generate, serve, tra
 from matcha_tpu_torch.audio.mel import MelConfig
 from matcha_tpu_torch.parallel import make_mesh
 from matcha_tpu_torch.parallel.ring_attention import ring_attention_local
+
+sys.path.insert(0, "examples")
+import demo_serving_torch, demo_torch
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device(None),
@@ -84,7 +95,9 @@ for call in (lambda: resolve_device(None),
              lambda: TTSEngine(MatchaTTS(tiny_config()).state_dict(), tiny_config(),
                                ServeConfig(mel_cfg=MelConfig(n_mels=8)),
                                mesh=make_mesh(devices=["cuda", "cuda"])),
-             lambda: vocoder_report.main(["--synthetic", "--out", "unused-ckpt-dir/r.json"])):
+             lambda: vocoder_report.main(["--synthetic", "--out", "unused-ckpt-dir/r.json"]),
+             lambda: demo_torch.main(["--out", "unused-ckpt-dir"]),
+             lambda: demo_serving_torch.main(["--out", "unused-ckpt-dir"])):
     try:
         call()
     except RuntimeError as e:
