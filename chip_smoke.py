@@ -132,6 +132,23 @@ PyTorch built for CUDA. In order:
    ring (the references' are not counted), timed at their shapes as path
    `parallel`.
 
+10. the `bench` phase: the port's bench (`matcha_tpu_torch.bench`) at the
+   JAX bench's shapes, the counts set to 0 just before and read just after:
+   bf16 synthesis at batch 128 and f32 at 64 (budget 512, 10 steps, one
+   CUDA graph replayed), MAS at (16, 100, 500) and (32, 150, 800) against
+   the C++ MAS and inside the loss graph at batch 128, training at batch
+   128 bf16 through `Trainer.dispatch` at K 1 and 8, the bf16 HiFi-GAN
+   sentence at 50 steps, and 256 `serve()` requests from 32 clients (groups
+   up to 16); any null or unequal row fails. The path's launches come from
+   the rows' record (graph replays, engine stages, trainer micro-steps,
+   eager MAS calls), split by shape and held against the graph accounting;
+   the headline's replay bit-equal (or within 1e-6 relative) to an eager
+   call on the same noise, its K1 launches (60 a replay) against the
+   profiler's; row 0 of a batch-128 f32 replay against a batch-1 call on
+   the same text and noise (the card-vs-CPU mel bar); K1 and K4 a call at
+   (128, 4, 512, 64) in both dtypes beside SDPA; every kernel timed at
+   every shape the path gave it, as path `bench`.
+
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed phase raises and the script exits non-zero; so does a machine with
@@ -854,26 +871,15 @@ def serve_griffin_lim(dev, mcfg, seed):
     return res
 
 
-# (group, substring of the kernel's name), first match wins
-KERNEL_GROUPS = (("K1 attention_fwd", "attn_fwd"), ("K2 mrf_step", "mrf_step"),
-                 ("K3a+K3b mas", "mas_path"),
-                 ("K4 attention_bwd", "attn_bwd"),
-                 ("convolution", "conv"),
-                 ("convolution", "fprop"), ("convolution", "dgrad"),
-                 ("convolution", "nchwtonhwc"), ("convolution", "nhwctonchw"),
-                 ("matmul", "gemm"), ("matmul", "gemv"), ("fft", "fft"),
-                 ("normalization", "moments"),
-                 ("normalization", "norm"), ("elementwise", "elementwise"),
-                 ("reduction", "reduce"), ("nccl", "nccl"))
-
-
 def profile_request(call):
     """Device time of one request by kernel group, and the card's idle share
-    of the request's wall time, from torch.profiler's CUDA kernel events.
-    Busy (`device_ms`) is the union of the kernels' time spans, the time the
+    of the request's wall time, from torch.profiler's CUDA kernel events,
+    grouped as `cli.trace_table` groups a trace. Busy (`device_ms`) is the union of the kernels' time spans, the time the
     card ran at least one kernel; `kernel_ms_sum` adds up their durations,
     which is more where kernels overlap."""
     from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tpu_torch.cli.trace_table import kernel_group
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -887,8 +893,7 @@ def profile_request(call):
     groups, counts, names = {}, {}, {}
     for e in kernels:
         ms = e.time_range.elapsed_us() / 1e3
-        low = e.name.lower()
-        group = next((g for g, key in KERNEL_GROUPS if key in low), "other")
+        group = kernel_group(e.name)
         groups[group] = groups.get(group, 0.0) + ms
         counts[group] = counts.get(group, 0) + 1
         names[e.name[:90]] = names.get(e.name[:90], 0.0) + ms
@@ -1690,14 +1695,14 @@ def attention_bwd_row(q, k, v, bias, scale, gen, reps):
 PER_CALL_SHAPES = ((1, 1024), (1, 512), (4, 512), (4, 256), (16, 448))
 
 
-def time_attention_per_call(dev, seed, reps=20):
+def time_attention_per_call(dev, seed, reps=20, shapes=PER_CALL_SHAPES):
     """K1 (without lse, as serving calls it) and K4 a call, in both dtypes, at
-    PER_CALL_SHAPES with H = 4, D = 64 and ragged lengths: beside SDPA and the
+    `shapes` (B, T) with H = 4, D = 64 and ragged lengths: beside SDPA and the
     bound. Not on the main path: these launches count toward no path."""
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     out = []
     for dtype in (torch.bfloat16, torch.float32):
-        for b, t in PER_CALL_SHAPES:
+        for b, t in shapes:
             q, k, v, bias = attention_inputs(b, 4, t, 64, dtype, dev, gen,
                                              [t - 37 * (i % 2) for i in range(b)])
             for name, row in (
@@ -3108,6 +3113,263 @@ def time_parallel_kernels(dev, mcfg, hcfg, seed, par, step_ns, reps=20):
     return rows
 
 
+# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- bench
+BENCH_REPS = 10  # timed calls of a kernel row at the bench path's shapes
+BENCH_SEED = 11  # the generator seed of the replay-against-eager checks
+BENCH_KERNELS = ("attention_fwd", "attention_bwd", "mas", "mrf_step")
+
+
+def bench_main_path(dev, mcfg, hcfg):
+    """The bench's rows (`matcha_tpu_torch.bench`) on the card at the JAX
+    bench's shapes, every count set to 0 just before and read just after:
+    the headline (bf16 synthesis, batch 128) and the fp32 row (batch 64),
+    MAS at both reference shapes, MAS inside the loss graph at batch 128,
+    training at batch 128 bf16 (K = 1 and K = 8), the bf16 single-sentence
+    HiFi-GAN latency at 50 steps, and the throughput serving row (256
+    requests from 32 closed-loop clients, groups of up to 16). A row that
+    raises fails the phase; so does a null value, an MFU that is not there, or
+    a MAS path that differs from the C++ MAS. Returns (rows, the bench's
+    record of its graphs and calls, the wrappers' ticks, seconds)."""
+    from matcha_tpu_torch import bench
+
+    shapes, record, peak = bench.SHAPES, [], bench.PEAK_FLOPS.get(torch.cuda.get_device_name(0))
+    kw = {"device": dev, "mcfg": mcfg, "record": record}
+    for w in bench.COUNTED.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rows = {}
+    for name, batch, bf16 in (("headline", shapes["headline_batch"], True),
+                              ("fp32", shapes["parity_batch"], False)):
+        xrt, wall, audio, flops = bench.bench_synthesis(batch=batch, bf16=bf16, with_cost=True,
+                                                        **kw)
+        rows[name] = {"batch": batch, "bf16": bf16, "x_realtime": xrt, "wall_s": wall,
+                      "audio_s": audio, "flops": flops,
+                      "mfu": None if peak is None else flops / wall / peak}
+    for b, tx, ty in shapes["mas"]:
+        speedup, kernel_ms, cpp_ms, equal = bench.bench_mas(b, tx, ty, device=dev, record=record)
+        rows[f"mas_{b}x{tx}x{ty}"] = {"kernel_ms": kernel_ms, "cpp_ms": cpp_ms,
+                                      "speedup": speedup, "paths_equal": equal}
+    rows["mas_fused_paths_equal"] = bench.mas_fused_check(shapes["fused_batch"], **kw)
+    t1, tk, k, flops = bench.bench_train(batch=shapes["tuned_batch"], precision="bf16", iters=3,
+                                         **kw)
+    rows["train"] = {"batch": shapes["tuned_batch"], "precision": "bf16", "k": k,
+                     "step_ms_k1": t1, "step_ms": tk, "flops": flops,
+                     "mfu": None if peak is None else flops / (tk / 1e3) / peak,
+                     "samples_per_s": shapes["tuned_batch"] / (tk / 1e3)}
+    xrt, wall, audio = bench.bench_single_sentence_fused("hifigan", iters=3, hcfg=hcfg, **kw)
+    rows["single_sentence_hifigan_fused_bf16"] = {"x_realtime": xrt, "wall_s": wall,
+                                                  "audio_s": audio}
+    eng = bench._full_size_engine(steps=10, mel_budgets=(256,), max_batch=16, device=dev,
+                                  mcfg=mcfg, hcfg=hcfg)
+    rows["serve_throughput"] = bench.bench_serve_latency(
+        n_requests=256, threads=32, closed_loop=True, eng=eng, record=record)
+    del eng
+    seconds = time.perf_counter() - t0
+    ticks = {name: w.launches for name, w in bench.COUNTED.items()}
+    nulls = [f"{row}.{key}" for row, r in rows.items()
+             for key, v in (r.items() if isinstance(r, dict) else [("", r)]) if v is None]
+    unequal = [row for row, r in rows.items() if row.startswith("mas_")
+               and (r is not True and not (isinstance(r, dict) and r["paths_equal"] is True))]
+    if nulls or unequal:
+        raise AssertionError(f"bench rows: null {nulls}, MAS paths unequal {unequal}")
+    for row, r in rows.items():
+        log(f"bench {row}: {json.dumps(r)}")
+    return rows, record, ticks, seconds
+
+
+def bench_accounting(record, dcfg, hcfg):
+    """The bench path's launches, by kernel, from its record (the graph
+    accounting: a graph's launches times its replays, the trainer's and the
+    engines' sums, the eager MAS calls), and the same launches split by
+    shape from each row's structure; the two must agree. Returns (launches,
+    {shape key: launches})."""
+    per_call = sum(n for n, _ in attention_shapes(dcfg, 1))  # K1 an estimator call
+    counted = dict.fromkeys(BENCH_KERNELS, 0)
+    shapes = {}
+
+    def add(key, n):
+        if n:
+            shapes[key] = shapes.get(key, 0) + n
+
+    def add_attention(dtype, b, frames, lengths, lse, calls, bwd=False):
+        for n, t in attention_shapes(dcfg, frames):
+            add(("attention_fwd", dtype, b, t, frames, tuple(lengths), lse), n * calls)
+            if bwd:
+                add(("attention_bwd", dtype, b, t, frames, tuple(lengths)), 2 * n * calls)
+
+    for e in record:
+        if "stages" in e:  # an engine: each stage's launches times its replays
+            dtype = "bfloat16" if e["bf16"] else "float32"
+            for st in e["stages"]:
+                for name, n in st["launches"].items():
+                    counted[name] += n * st["replays"]
+                key = st["key"]
+                if key[0] == "encode" or not st["replays"]:
+                    continue
+                b, budget = (key[1], key[3]) if key[0] == "decode" else (1, key[2])
+                steps = st["launches"]["attention_fwd"] // per_call
+                add_attention(dtype, b, budget, [budget] * b, False, steps * st["replays"])
+                if e["vocoder"] == "hifigan":
+                    for c, t, k, d in mrf_shapes(hcfg, budget):
+                        add(("mrf_step", dtype, b, c, t, k, d), st["replays"])
+            continue
+        for name, n in e["launches"].items():
+            counted[name] += n * e.get("replays", 1)
+        if e["row"] == "synthesis":
+            add_attention("bfloat16" if e["bf16"] else "float32", e["batch"], e["ty"],
+                      e["mel_lengths"], False, e["n_timesteps"] * e["replays"])
+        elif e["row"] == "mas_fused":
+            b, tx, ty = e["shape"]
+            add(("mas", tx, ty, tuple(e["x_lengths"]), tuple(e["y_lengths"])), e["replays"])
+            add_attention("float32", b, ty, e["y_lengths"], False, e["replays"])
+        elif e["row"] == "mas":
+            add(("mas_problem",) + tuple(e["shape"]), e["launches"]["mas"])
+        elif e["row"] == "train":
+            b, tx, ty, steps = e["batch"], e["tx"], e["ty"], e["micro_steps"]
+            add(("mas", tx, ty, (tx,) * b, (ty,) * b), steps)
+            add_attention("bfloat16" if e["precision"] == "bf16" else "float32", b, ty, [ty] * b,
+                      True, steps, bwd=True)
+        else:
+            raise AssertionError(f"bench record: no accounting for a {e['row']!r} row")
+    by_kernel = {name: sum(n for key, n in shapes.items()
+                           if key[0] == name or (name == "mas" and key[0] == "mas_problem"))
+                 for name in BENCH_KERNELS}
+    if by_kernel != counted or not all(counted.values()):
+        raise AssertionError(f"bench path: graph accounting {counted}, by shape {by_kernel}; "
+                             f"every kernel must launch")
+    return counted, shapes
+
+
+def time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns, reps=BENCH_REPS):
+    """Every kernel at every shape the bench path gave it: held against its
+    plain version and timed beside it, the library call and the bound, as
+    path "bench"."""
+    from matcha_tpu_torch.cli import bench_mas
+    from matcha_tpu_torch.ops import mas
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    h, d = mcfg.decoder.num_heads, mcfg.decoder.attention_head_dim
+    rows = {name: [] for name in BENCH_KERNELS}
+    for key, n in shapes.items():
+        kind = key[0]
+        if kind in ("mas", "mas_problem"):
+            if kind == "mas":
+                value, mask, t_x, t_y = mas_batch_inputs(key[1:], dev, gen)
+            else:
+                value, mask = (torch.from_numpy(a).to(dev)
+                               for a in bench_mas.make_problem(*key[1:]))
+                t_x, t_y = mas.lengths_from_mask(mask)
+            rows["mas"].append(dict({"path": "bench", "dtype": "float32",
+                                     "peak_flops": PEAK_F32_FLOPS, "shape": list(value.shape),
+                                     "count": n, "launches": n},
+                                    **mas_row(value, mask, t_x, t_y, step_ns, reps)))
+            continue
+        dtype_name = key[1]
+        dtype = getattr(torch, dtype_name)
+        common = {"path": "bench", "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype]}
+        if kind == "mrf_step":
+            b, c, t, k, dil = key[2:]
+            rows["mrf_step"].append(dict(common, shape=[b, c, t], k=k, d=dil, count=n,
+                                         launches=n, **mrf_row(b, c, t, k, dil, dtype, dev, gen,
+                                                               reps, "bench")))
+            continue
+        b, t, frames, lengths = key[2:6]
+        q, k_, v, bias = attention_inputs(b, h, t, d, dtype, dev, gen, list(lengths), frames)
+        if kind == "attention_fwd":
+            rows[kind].append(dict(common, shape=[b, h, t, d], count=n, launches=n, lse=key[6],
+                                   **attention_fwd_row(q, k_, v, bias, d ** -0.5, key[6], reps)))
+        else:
+            rows[kind].append(dict(common, shape=[b, h, t, d], count=n // 2, launches=n,
+                                   **attention_bwd_row(q, k_, v, bias, d ** -0.5, gen, reps)))
+    log_rows(rows)
+    return rows
+
+
+def bench_synthesis_checks(dev, mcfg):
+    """The headline's graph against the same calls made eagerly: a replay of
+    the batch-128 bf16 `synthesise_fixed` graph against an eager call drawing
+    the same noise (bit-equal, or within 1e-6 of the largest |mel|); one
+    replay under the profiler, whose K1 kernels equal the graph's accounting
+    (60 a 10-step synthesis) with no wrapper ticking; and in float32, row 0
+    of a batch-128 replay against a batch-1 call on the same text and noise
+    (the card-vs-CPU mel bar): a row does not depend on its batch mates."""
+    from matcha_tpu_torch import bench
+
+    shapes, res = bench.SHAPES, {}
+    b, tx, ty, steps = shapes["headline_batch"], shapes["tx"], shapes["ty"], 10
+    want_k1 = steps * sum(n for n, _ in attention_shapes(mcfg.decoder, 1))
+    for bf16 in (True, False):
+        model, x, xl, gen, stage = bench.make_synthesis(b, tx, ty, steps, bf16, dev, mcfg)
+        name = "bf16" if bf16 else "fp32"
+        want = {"attention_fwd": want_k1, "attention_bwd": 0, "mas": 0, "mrf_step": 0}
+        if stage.launches != want:
+            raise AssertionError(f"{name} synthesis graph: {stage.launches} a replay, "
+                                 f"expected {want}")
+        gen.manual_seed(BENCH_SEED)
+        got = stage.run(x, xl)[0].clone()
+        if bf16:
+            gen.manual_seed(BENCH_SEED)
+            with torch.no_grad():
+                eager = model.synthesise_fixed(x, xl, ty, steps, generator=gen)["mel"]
+            gap = float((got.float() - eager.float()).abs().max())
+            rel = gap / float(eager.float().abs().max())
+            equal = bool(torch.equal(got, eager))
+            if not equal and rel > 1e-6:
+                raise AssertionError(f"bf16 synthesis replay vs eager: {rel:.3g} of max |mel|")
+            ticks = wrapper_counts_all()
+            prof = profile_request(lambda: stage.run(x, xl))
+            seen = prof.get("launches_by_group", {}).get("K1 attention_fwd", 0)
+            if seen != want_k1 or wrapper_counts_all() != ticks:
+                raise AssertionError(f"a synthesis replay ran {seen} K1 kernels by the profiler, "
+                                     f"{want_k1} by the graph accounting; wrappers "
+                                     f"{ticks} -> {wrapper_counts_all()}")
+            res["bf16_replay_vs_eager"] = {"bit_equal": equal, "max_abs_gap": gap,
+                                           "rel_gap": rel, "bar_rel": 1e-6}
+            res["profile"] = prof
+            log(f"bench bf16 synthesis at batch {b}: replay vs eager bit-equal {equal}, gap "
+                f"{rel:.3g} of max |mel| (bar 1e-6); one replay: K1 {seen} by the profiler = "
+                f"{want_k1} by the graph accounting, busy {prof['device_ms']:.2f} of "
+                f"{prof['wall_ms']:.2f} ms, {prof['kernel_launches']} kernels")
+        else:
+            gen.manual_seed(BENCH_SEED)
+            z = torch.randn((b, mcfg.n_feats, ty), generator=gen, device=dev)  # sample_cfm's draw
+            with torch.no_grad():
+                one = model.synthesise_fixed(x[:1], xl[:1], ty, steps,
+                                             z=z[:1].transpose(1, 2))["mel"]
+            err = max_err_within(got[:1], one, TOL_MEL, 0.0,
+                                 f"f32 synthesis row 0 at batch {b} vs batch 1")
+            res["fp32_row0_vs_batch1"] = {"max_abs_err": err, "bar": TOL_MEL}
+            log(f"bench f32 synthesis: row 0 of batch {b} vs a batch-1 call, same text and z: "
+                f"{err:.3g} (bar {TOL_MEL})")
+        del model, stage
+    return res
+
+
+def wrapper_counts_all():
+    from matcha_tpu_torch import bench
+
+    return {name: w.launches for name, w in bench.COUNTED.items()}
+
+
+def bench_path(dev, mcfg, hcfg, seed, step_ns):
+    """The bench phase: its rows (`bench_main_path`), their launches by the
+    graph accounting split by shape (`bench_accounting`), the checks of the
+    headline's graph (`bench_synthesis_checks`), K1 and K4 a call at
+    (128, 4, 512, 64) in both dtypes, and every kernel at every shape the
+    rows gave it (path "bench")."""
+    rows, record, ticks, seconds = bench_main_path(dev, mcfg, hcfg)
+    launches, shapes = bench_accounting(record, mcfg.decoder, hcfg)
+    log(f"bench path: {seconds:.1f} s of rows; launches {launches} (graph replays and eager "
+        f"MAS calls), wrappers ticked {ticks} (captures, warm-ups, eager calls)")
+    checks = bench_synthesis_checks(dev, mcfg)
+    per_call = time_attention_per_call(dev, seed, BENCH_REPS, shapes=((128, 512),))
+    kernel_rows = time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns)
+    return {"rows": rows, "record": record, "launches": launches, "wrapper_ticks": ticks,
+            "rows_s": seconds, "checks": checks, "per_call": per_call,
+            "kernel_rows": kernel_rows}
+
+
 def main_path_requests(engine):
     """(name, batch, budget, mel lengths) of the two decodes the main path ran."""
     syn, ll = engine["synthesise"], engine["lowlatency"]
@@ -3121,13 +3383,8 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, path="serve", dtype=torch.bflo
     `mcfg`, K2 only with a HiFi-GAN `hcfg`, run `vocoder_calls` times at each
     request's shapes): the kernel against its plain version, then per-launch
     kernel, plain and library times and each launch's bound."""
-    from matcha_tpu_torch.ops.mrf import mrf_plan, mrf_step_cuda, mrf_step_plain, pack_weights
-
     gen = torch.Generator(device=dev).manual_seed(seed)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     name = str(dtype).split(".")[1]
-    elt = torch.tensor([], dtype=dtype).element_size()
-    atol, rtol = TOL_MRF_F32 if dtype == torch.float32 else TOL[name]
     common = {"path": path, "dtype": name, "peak_flops": PEAK_FLOPS[dtype]}
     rows = {"attention_fwd": [], "mrf_step": []}
     # a request: (name, batch, frame budget, mel lengths[, frames the vocoder ran on,
@@ -3142,26 +3399,39 @@ def time_kernels(dev, mcfg, hcfg, seed, requests, path="serve", dtype=torch.bflo
                 **attention_fwd_row(q, k, v, bias, d ** -0.5, False, reps)})
         for c, t, k, dil in (mrf_shapes(hcfg, voc[0] if voc else budget)
                              if hcfg is not None else []):
-            args = mrf_inputs(b, c, t, k, dtype, dev, gen)
-            packed = pack_weights(args[1], args[3])  # once, as ResBlock1 packs its weights
-            err = max_err_within(mrf_step_cuda(*args, dil, packed), mrf_step_plain(*args, dil),
-                                 atol, rtol, f"K2 {name} {req} {[b, c, t]} k={k} d={dil}")
-            flops, nbytes = mrf_work(b, c, t, k, elt)
             rows["mrf_step"].append({
                 **common, "request": req, "shape": [b, c, t], "k": k, "d": dil,
-                "count": vocoder_calls, "launches": vocoder_calls, "max_abs_err": err, "flops": flops, "bytes": nbytes,
-                "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
-                "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
-                "unfused_ms": cuda_ms(lambda: mrf_step_unfused(*args, dil), reps),
-                "library_ms": None,
-                # the launch's tiling; its shared memory is dynamic, so ptxas does not show it
-                "plan": mrf_plan(b, c, t, k, dil, elt, sms).__dict__})
+                "count": vocoder_calls, "launches": vocoder_calls,
+                **mrf_row(b, c, t, k, dil, dtype, dev, gen, reps, req)})
     log_rows(rows)
     for kernel, rs in rows.items():
         if rs:
             log(f"{kernel} {name} at the {path} path's shapes: max abs err "
                 f"{max(r['max_abs_err'] for r in rs):.3g}")
     return rows
+
+
+def mrf_row(b, c, t, k, dil, dtype, dev, gen, reps, what):
+    """K2 at one (B, C, T, k, d) on random inputs: held against its plain
+    version, then timed beside it and the unfused PyTorch sequence; the
+    work, and the launch's tile plan (its shared memory is dynamic, so ptxas
+    does not show it)."""
+    from matcha_tpu_torch.ops.mrf import mrf_plan, mrf_step_cuda, mrf_step_plain, pack_weights
+
+    name = str(dtype).split(".")[1]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    atol, rtol = TOL_MRF_F32 if dtype == torch.float32 else TOL[name]
+    args = mrf_inputs(b, c, t, k, dtype, dev, gen)
+    packed = pack_weights(args[1], args[3])  # once, as ResBlock1 packs its weights
+    err = max_err_within(mrf_step_cuda(*args, dil, packed), mrf_step_plain(*args, dil),
+                         atol, rtol, f"K2 {name} {what} {[b, c, t]} k={k} d={dil}")
+    flops, nbytes = mrf_work(b, c, t, k, elt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"max_abs_err": err, "flops": flops, "bytes": nbytes,
+            "ms": cuda_ms(lambda: mrf_step_cuda(*args, dil, packed), reps),
+            "plain_ms": cuda_ms(lambda: mrf_step_plain(*args, dil), reps),
+            "unfused_ms": cuda_ms(lambda: mrf_step_unfused(*args, dil), reps),
+            "library_ms": None, "plan": mrf_plan(b, c, t, k, dil, elt, sms).__dict__}
 
 
 def log_rows(rows):
@@ -3374,6 +3644,9 @@ def main(argv=None) -> int:
             rows[name].extend(rs)
         per_call = time_attention_per_call(dev, args.seed)
         mrf_stages = time_mrf_per_stage(dev, hcfg, args.seed)
+        bench_res = bench_path(dev, mcfg, hcfg, args.seed, step_ns)
+        for name, rs in bench_res["kernel_rows"].items():
+            rows[name].extend(rs)
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                               for req, b, budget, _ in requests) + ", bf16, HiFi-GAN, CUDA graphs"
     serve_gl_work = " and ".join(f"{req} (batch {b}, budget {budget})"
@@ -3406,6 +3679,12 @@ def main(argv=None) -> int:
                 f"blocks a rank for {PAR_BLOCKS} ranks in one process; seq-parallel "
                 f"decode_fixed at one rank, 4 texts at budget {PAR_DECODE_BUDGET}, f32, "
                 f"{ENTRY_STEPS} steps")
+    bench_path_work = ("matcha_tpu_torch.bench's rows: bf16 synthesis at batch 128 and f32 at "
+                       "64 (Tx 64, budget 512, 10 steps, CUDA graph replays), MAS at (16, 100, "
+                       "500) and (32, 150, 800) and inside the loss graph at batch 128, training "
+                       "at batch 128 bf16 (K 1 and 8, Ty 512), the bf16 HiFi-GAN single sentence "
+                       "at 50 steps, 256 serve() requests from 32 clients (groups up to 16, "
+                       "budget 256)")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
                                     "serve16": serve16["launches"],
                                     "train": training["launches"],
@@ -3414,12 +3693,14 @@ def main(argv=None) -> int:
                                     "generate_gl": generated["griffin_lim"]["launches"],
                                     "vocoder_report": report["launches"],
                                     "bench_mas": {"mas": entry["bench_mas"]["launches"]},
-                                    "parallel": par["launches"]},
+                                    "parallel": par["launches"],
+                                    "bench": bench_res["launches"]},
                        {"serve": serve_work, "serve_gl": serve_gl_work,
                         "serve16": serve16_work, "train": train_work,
                         "vocoder": vocoder_work, "generate": generate_work,
                         "generate_gl": generate_gl_work, "vocoder_report": report_work,
-                        "bench_mas": bench_work, "parallel": par_work})
+                        "bench_mas": bench_work, "parallel": par_work,
+                        "bench": bench_path_work})
     for k in line["kernels"]:
         if k["name"] == "mas":
             k["chain_step_ns"] = step_ns
@@ -3433,7 +3714,8 @@ def main(argv=None) -> int:
          "entry_points": entry, "parallel": {k: v for k, v in par.items() if k != "training"},
          "parallel_training": {k: v for k, v in par["training"].items() if k != "batches"},
          "e2e": e2e, "kernel_rows": rows,
-         "attention_per_call": per_call, "mrf_per_stage": mrf_stages, **line},
+         "attention_per_call": per_call, "mrf_per_stage": mrf_stages,
+         "bench": {k: v for k, v in bench_res.items() if k != "kernel_rows"}, **line},
         indent=1))
     log(line)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -153,10 +153,13 @@ class _Graph:
     copies the caller's tensors into them and replays. The outputs live in the
     engine's shared pool, where a graph captured later may keep intermediates,
     so the caller copies them out before any other replay. `launches` holds
-    the kernel launches the capture recorded, which each replay repeats.
+    the launches of the `counted` wrappers that the capture recorded, which
+    each replay repeats; `replays` counts the replays. `generators` are
+    registered with the graph, so that each replay draws fresh numbers from
+    them.
     """
 
-    def __init__(self, fn, args, device, pool):
+    def __init__(self, fn, args, device, pool, generators=(), counted=COUNTED):
         self.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device)
                             .copy_(a, non_blocking=True) for a in args)
         # one eager run builds what is built at first use: the kernels, K2's
@@ -166,18 +169,22 @@ class _Graph:
         with torch.cuda.stream(side):
             fn(*self.inputs)
         torch.cuda.current_stream(device).wait_stream(side)
-        before = {name: w.launches for name, w in COUNTED.items()}
+        before = {name: w.launches for name, w in counted.items()}
         self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
         # thread_local: the delivery thread's event waits and host reads may
         # run while this thread captures
         with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
             self.outputs = fn(*self.inputs)
-        self.launches = {name: w.launches - before[name] for name, w in COUNTED.items()}
+        self.launches = {name: w.launches - before[name] for name, w in counted.items()}
+        self.replays = 0
 
     def run(self, *args):
         for dst, src in zip(self.inputs, args):
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
+        self.replays += 1
         return self.outputs
 
 

@@ -1,5 +1,5 @@
 """Profiling and timing: torch.profiler traces, a step timer that waits for
-the device, and the real-time factor.
+the device, the real-time factor, and a count of a function's products.
 
 The port of `matcha_tpu/utils/profiling.py`. A trace is a Chrome trace
 (`trace_<pid>_<ms>.json`, open in Perfetto or chrome://tracing) of the host
@@ -92,3 +92,21 @@ class StepTimer:
 def rtf(wall_seconds: float, mel_frames: int, hop: int = 256, sr: int = 22050) -> float:
     """Real-time factor: wall time over the duration of the audio produced."""
     return wall_seconds * sr / (mel_frames * hop)
+
+
+# what `product_flops` counts, for the records that carry its numbers
+FLOP_COUNTER = ("products only: matmul, convolution, attention (torch.utils.flop_counter; "
+                "elementwise work, normalisation and reductions not counted); not XLA's "
+                "cost_analysis")
+
+
+def product_flops(fn, *args, **kwargs) -> int:
+    """Floating-point operations of the products that one call of `fn` runs:
+    matrix products, convolutions and attention, forward and any backward run
+    inside the call (`torch.utils.flop_counter.FlopCounterMode`). Elementwise
+    work, normalisation and reductions are not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return int(counter.get_total_flops())

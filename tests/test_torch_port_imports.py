@@ -37,7 +37,8 @@ new = {"matcha_tpu_torch.nn.dropout", "matcha_tpu_torch.data.ljspeech",
        "matcha_tpu_torch.cli.analyze", "matcha_tpu_torch.data.download",
        "matcha_tpu_torch.parallel", "matcha_tpu_torch.parallel.mesh",
        "matcha_tpu_torch.parallel.sharding", "matcha_tpu_torch.parallel.ring_attention",
-       "matcha_tpu_torch.cli.bench_scaling"}
+       "matcha_tpu_torch.cli.bench_scaling", "matcha_tpu_torch.bench",
+       "matcha_tpu_torch.cli.serve_load_curve", "matcha_tpu_torch.cli.trace_table"}
 assert new <= set(names), new - set(names)
 print("MODULES", len(names))
 print("LEAKED", leaked)
@@ -66,8 +67,9 @@ from matcha_tpu_torch.ops.mrf import mrf_step
 from matcha_tpu_torch.serve import ServeConfig, TTSEngine
 from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 from matcha_tpu_torch.train.vocoder import VocoderTrainConfig, VocoderTrainer
-from matcha_tpu_torch.cli import (bench_mas, bench_scaling, generate, serve, train_vocoder,
-                                  vocoder_report)
+from matcha_tpu_torch import bench
+from matcha_tpu_torch.cli import (bench_mas, bench_scaling, generate, serve, serve_load_curve,
+                                  train_vocoder, vocoder_report)
 from matcha_tpu_torch.audio.mel import MelConfig
 from matcha_tpu_torch.parallel import make_mesh
 from matcha_tpu_torch.parallel.ring_attention import ring_attention_local
@@ -96,6 +98,10 @@ for call in (lambda: resolve_device(None),
                                ServeConfig(mel_cfg=MelConfig(n_mels=8)),
                                mesh=make_mesh(devices=["cuda", "cuda"])),
              lambda: vocoder_report.main(["--synthetic", "--out", "unused-ckpt-dir/r.json"]),
+             lambda: bench.main([]),
+             lambda: bench.main(["--train-sweep", "--out", "unused-ckpt-dir/sweep.json"]),
+             lambda: bench.bench_synthesis(batch=1, ty=16),
+             lambda: serve_load_curve.main(["--out", "unused-ckpt-dir/curve.json"]),
              lambda: demo_torch.main(["--out", "unused-ckpt-dir"]),
              lambda: demo_serving_torch.main(["--out", "unused-ckpt-dir"])):
     try:
