@@ -149,6 +149,21 @@ PyTorch built for CUDA. In order:
    (128, 4, 512, 64) in both dtypes beside SDPA; every kernel timed at
    every shape the path gave it, as path `bench`.
 
+11. the `tools` phase: the JAX package's last instruments' counterparts as a
+   user runs them, the counts set to 0 just before and read just after:
+   `cli.trace_train_step` at batch 128 bf16, K 8, with attribution (the
+   traced device ms a dispatch within 0.8-1.05 of the synchronised wall of
+   the same dispatches; launches by the graph accounting and, for the traced
+   replays, by the profiler; every FFT-group kernel of the eager micro-step
+   on an op with shapes; the three heaviest rows printed);
+   `cli.profile_vocoder` at 8 x 256 in bf16 and f32 (K2 36 a replay by the
+   graph and by the profiler; the graph's output against the generator
+   through K2's plain version); `cli.train_mfu_sweep`'s `remat_dots` and
+   `cudnn_benchmark` children at --iters 2 (no error, no null, their graphs'
+   launches, first losses against `base`, the bench phase's `bench_train`
+   at batch 128 bf16, within 1e-6 and 1e-3 relative). The in-process tools'
+   kernels are timed at their shapes as path `tools`.
+
 Prints one JSON line per result; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed phase raises and the script exits non-zero; so does a machine with
@@ -158,7 +173,10 @@ build/chip_smoke.json.
 """
 
 import argparse
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import math
 import re
@@ -3241,10 +3259,10 @@ def bench_accounting(record, dcfg, hcfg):
     return counted, shapes
 
 
-def time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns, reps=BENCH_REPS):
-    """Every kernel at every shape the bench path gave it: held against its
-    plain version and timed beside it, the library call and the bound, as
-    path "bench"."""
+def time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns, reps=BENCH_REPS, path="bench"):
+    """Every kernel at every shape a path gave it (`shapes`, keyed as
+    `bench_accounting` keys them): held against its plain version and timed
+    beside it, the library call and the bound, as `path`."""
     from matcha_tpu_torch.cli import bench_mas
     from matcha_tpu_torch.ops import mas
 
@@ -3260,19 +3278,19 @@ def time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns, reps=BENCH_REPS):
                 value, mask = (torch.from_numpy(a).to(dev)
                                for a in bench_mas.make_problem(*key[1:]))
                 t_x, t_y = mas.lengths_from_mask(mask)
-            rows["mas"].append(dict({"path": "bench", "dtype": "float32",
+            rows["mas"].append(dict({"path": path, "dtype": "float32",
                                      "peak_flops": PEAK_F32_FLOPS, "shape": list(value.shape),
                                      "count": n, "launches": n},
                                     **mas_row(value, mask, t_x, t_y, step_ns, reps)))
             continue
         dtype_name = key[1]
         dtype = getattr(torch, dtype_name)
-        common = {"path": "bench", "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype]}
+        common = {"path": path, "dtype": dtype_name, "peak_flops": PEAK_FLOPS[dtype]}
         if kind == "mrf_step":
             b, c, t, k, dil = key[2:]
             rows["mrf_step"].append(dict(common, shape=[b, c, t], k=k, d=dil, count=n,
                                          launches=n, **mrf_row(b, c, t, k, dil, dtype, dev, gen,
-                                                               reps, "bench")))
+                                                               reps, path)))
             continue
         b, t, frames, lengths = key[2:6]
         q, k_, v, bias = attention_inputs(b, h, t, d, dtype, dev, gen, list(lengths), frames)
@@ -3367,6 +3385,222 @@ def bench_path(dev, mcfg, hcfg, seed, step_ns):
     kernel_rows = time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns)
     return {"rows": rows, "record": record, "launches": launches, "wrapper_ticks": ticks,
             "rows_s": seconds, "checks": checks, "per_call": per_call,
+            "kernel_rows": kernel_rows}
+
+
+# ---------------------------------------------------------------- tools
+# the sweep's children run here, each against `base`, the bench phase's own
+# `bench_train` at batch 128 bf16 (the call `base` makes): its first losses, relative bars
+TOOLS_SWEEP_BARS = {"remat_dots": 1e-6, "cudnn_benchmark": 1e-3}
+TOOLS_VOC = (8, 256)  # profile_vocoder's batch and mel frames
+TOOLS_REPS = 5  # timed calls of a kernel row at the tools' shapes
+
+
+@contextlib.contextmanager
+def printed():
+    """A buffer holding what the block prints, which is printed after it."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield buf
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+
+
+@contextlib.contextmanager
+def plain_mrf():
+    """The generator's MRF steps through K2's plain version, on any device."""
+    from matcha_tpu_torch.models import hifigan
+    from matcha_tpu_torch.ops.mrf import mrf_step_plain
+
+    kernel = hifigan.mrf_step
+    hifigan.mrf_step = lambda x, w1, b1, w2, b2, d, packed=None: mrf_step_plain(x, w1, b1, w2,
+                                                                                 b2, d)
+    try:
+        yield
+    finally:
+        hifigan.mrf_step = kernel
+
+
+def trace_train_step_run(dev, mcfg, root):
+    """`cli.trace_train_step` at batch 128, K 8, bf16, with attribution: the
+    traced device ms a dispatch within 0.8-1.05 of the synchronised wall of
+    the same dispatches; launches by the graph accounting (4 dispatches of 8
+    replayed, two eager micro-steps) and, for the traced replays, by the
+    profiler's kernel names; every FFT-group kernel of the eager step on an
+    op with shapes; what it printed agrees."""
+    from matcha_tpu_torch.cli import trace_train_step
+
+    with printed() as out:
+        res = trace_train_step.main([str(root / "trace_train_step"), "--eager-attribution"])
+    text, k = out.getvalue(), res["k"]
+    per_dispatch, wall = res["ms_per_dispatch"], res["wall_ms_per_dispatch"]
+    if f"device {per_dispatch:.1f} ms/dispatch" not in text or "by layer" not in text:
+        raise AssertionError("trace_train_step did not print its device ms and its attribution")
+    ratio = per_dispatch / wall
+    if not 0.8 <= ratio <= 1.05:
+        raise AssertionError(f"trace_train_step: device {per_dispatch:.2f} ms a dispatch over a "
+                             f"synchronised wall of {wall:.2f} ms: {ratio:.3f}, outside 0.8-1.05")
+    step = per_micro_step(mcfg)
+    want = {n: (4 * k + 2) * c for n, c in step.items()}
+    traced = {n: res["kernels_per_dispatch_by_group"].get(g, 0) for n, g in
+              (("attention_fwd", "K1 attention_fwd"), ("attention_bwd", "K4 attention_bwd"),
+               ("mas", "K3a+K3b mas"))}
+    if res["launches"] != want or traced != {n: k * c for n, c in step.items()} \
+            or res["eager_launches"] != {n: 2 * c for n, c in step.items()}:
+        raise AssertionError(f"trace_train_step launches {res['launches']} (eager "
+                             f"{res['eager_launches']}), expected {want}; the profiler saw "
+                             f"{traced} a replayed dispatch")
+    att = res["attribution"]
+    if att["fft_without_shapes"]:
+        raise AssertionError(f"{att['fft_without_shapes']} FFT-group kernels of the eager step "
+                             f"are on no op with shapes")
+    fft_rows = [r for r in att["rows"] if r["fft_kernels"]]
+    for title, rows in (("heaviest", att["rows"]), ("heaviest with FFT kernels", fft_rows)):
+        for r in rows[:3]:
+            log(f"trace_train_step {title}: {r['ms']:.3f} ms ({r['fft_ms']:.3f} FFT) "
+                f"{r['pass']} {r['module']} | {r['op']} | {r['shapes']}")
+    log(f"trace_train_step: device {per_dispatch:.2f} ms a dispatch of {k} over a synchronised "
+        f"wall of {wall:.2f} ms ({ratio:.3f}); eager step {att['total_ms']:.2f} ms, FFT "
+        f"{att['fft_ms']:.2f} ms in {len(fft_rows)} rows; kernels only eager "
+        f"{len(res['only_eager'])}, only replayed {len(res['only_replay'])}")
+    return {k_: v for k_, v in res.items() if k_ != "top_kernels"} | {
+        "ratio": ratio, "attribution_top": att["rows"][:40], "fft_rows": fft_rows,
+        "attribution": {k_: v for k_, v in att.items() if k_ != "rows"}}
+
+
+def profile_vocoder_run(dev, hcfg, root):
+    """`cli.profile_vocoder` at 8 x 256 in bf16 and f32: K2 36 a replay by the
+    graph's accounting and by the profiler's kernel names over the 4 traced
+    replays; the graph's output against the generator through K2's plain
+    version on the same mel, at K2's bars for the dtype."""
+    from matcha_tpu_torch.cli import profile_vocoder
+
+    batch, frames = TOOLS_VOC
+    per = len(mrf_shapes(hcfg, 1))
+    res = {}
+    for name, flag in (("bfloat16", ["--bf16"]), ("float32", [])):
+        with printed() as out:
+            r = profile_vocoder.main(["--batch", str(batch), "--frames", str(frames),
+                                      "--trace-dir", str(root / f"voc_{name}")] + flag)
+        traced = r["kernels_by_group"].get("K2 mrf_step", 0)
+        if "up=conv_transpose res=K2" not in out.getvalue() \
+                or r["launches"].get("mrf_step") != per or traced != per * profile_vocoder.TRACED:
+            raise AssertionError(f"profile_vocoder {name}: K2 {r['launches']} a replay by the "
+                                 f"graph, {traced} kernels in {profile_vocoder.TRACED} traced "
+                                 f"replays; expected {per} a replay")
+        with plain_mrf(), torch.no_grad():
+            ref = r["generator"](r["mel"])
+        atol, rtol = TOL_MRF_F32 if name == "float32" else TOL["bfloat16"]
+        err = max_err_within(r["out"], ref, atol, rtol,
+                             f"profile_vocoder {name} graph vs the plain MRF path")
+        res[name] = {"wall_ms": r["wall_ms"], "total_ms": r["total_ms"], "replays": r["replays"],
+                     "launches_per_replay": r["launches"], "by_group_ms": r["by_group"],
+                     "kernels_by_group": r["kernels_by_group"],
+                     "top_kernels_ms": dict(sorted(r["by_kernel"].items(),
+                                                   key=lambda kv: -kv[1])[:25]),
+                     "max_abs_err": err, "bar": {"atol": atol, "rtol": rtol}}
+        log(f"profile_vocoder {name} at {batch} x {frames}: {r['wall_ms']:.2f} ms wall, "
+            f"{r['total_ms']:.2f} device ms over {profile_vocoder.TRACED} replays; K2 {per} a "
+            f"replay by the graph and {traced} traced; vs the plain path {err:.3g} (atol {atol}, "
+            f"rtol {rtol})")
+        del r, ref
+    return res
+
+
+def sweep_run(mcfg, root, base):
+    """`cli.train_mfu_sweep`'s `remat_dots` and `cudnn_benchmark` children at
+    --iters 2: every row without an error or a null, its graphs' launches
+    those of its micro-steps, and its first dispatch's losses against
+    `base`'s (the first metrics of the bench phase's `bench_train` at batch
+    128 bf16, the `base` variant's call) within `TOOLS_SWEEP_BARS`, the gap
+    reported."""
+    from matcha_tpu_torch.cli import train_mfu_sweep
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the children share the card with this process
+    with printed() as out:
+        sweep = train_mfu_sweep.main(["--only", ",".join(TOOLS_SWEEP_BARS), "--iters", "2",
+                                      "--out", str(root / "train_mfu_sweep.json")])
+    rows = {r["variant"]: r for r in sweep["rows"]}
+    errors = {n: r["error"] for n, r in rows.items() if "error" in r}
+    nulls = [f"{n}.{key}" for n, r in rows.items() for key in
+             ("train_step_ms_k1", "train_step_ms_k8", "step_flops", "mfu_k8", "samples_per_s_k8",
+              "first_metrics") if r.get(key) is None]
+    if errors or nulls or f'"n_rows": {len(TOOLS_SWEEP_BARS)}' not in out.getvalue():
+        raise AssertionError(f"train_mfu_sweep: errors {errors}, nulls {nulls}")
+    for n, r in rows.items():
+        want = {k: r["micro_steps"] * c
+                for k, c in per_micro_step(mcfg, train_mfu_sweep.VARIANTS[n].get("remat")).items()}
+        if r["launches"] != want:
+            raise AssertionError(f"sweep {n}: launches {r['launches']}, expected {want} for "
+                                 f"{r['micro_steps']} replayed micro-steps")
+    gaps = {}
+    for n, bar in TOOLS_SWEEP_BARS.items():
+        got = rows[n]["first_metrics"]
+        gaps[n] = max(abs(got[k] - base[k]) / abs(base[k]) for k in ("dur_loss", "prior_loss",
+                                                                      "diff_loss", "loss"))
+        if gaps[n] > bar:
+            raise AssertionError(f"sweep {n}: first losses {got} vs base {base}: {gaps[n]:.3g} "
+                                 f"relative, over {bar}")
+    for n, r in rows.items():
+        log(f"sweep {n}: K1 {r['train_step_ms_k1']:.2f} ms, K8 {r['train_step_ms_k8']:.2f} ms a "
+            f"micro-step, MFU {r['mfu_k8']:.4f}, {r['samples_per_s_k8']:.1f} samples/s; first "
+            f"losses vs base {gaps[n]:.3g} relative; clocks {r['clocks_before']} -> "
+            f"{r['clocks_after']}; {r['wall_s']:.1f} s ({r['child_s']:.1f} s in the child)")
+    return {"rows": sweep["rows"], "base_first_metrics": base, "gaps": gaps,
+            "bars": TOOLS_SWEEP_BARS}
+
+
+def tools_accounting(mcfg, hcfg, trace_res, voc):
+    """The tools path's launches by kernel (trace_train_step's replays and
+    eager steps, profile_vocoder's replays) and the same split by shape, keyed
+    as `bench_accounting` keys them."""
+    dcfg, shapes = mcfg.decoder, {}
+    b, tx, ty = trace_res["batch"], trace_res["tx"], trace_res["ty"]
+    steps = trace_res["launches"]["mas"]  # one MAS a micro-step
+    shapes[("mas", tx, ty, (tx,) * b, (ty,) * b)] = steps
+    for n, t in attention_shapes(dcfg, ty):
+        shapes[("attention_fwd", "bfloat16", b, t, ty, (ty,) * b, True)] = n * steps
+        shapes[("attention_bwd", "bfloat16", b, t, ty, (ty,) * b)] = 2 * n * steps
+    vb, frames = TOOLS_VOC
+    for dtype, r in voc.items():
+        for c, t, k, d in mrf_shapes(hcfg, frames):
+            key = ("mrf_step", dtype, vb, c, t, k, d)
+            shapes[key] = shapes.get(key, 0) + r["replays"]
+    launches = dict(trace_res["launches"],
+                    mrf_step=sum(r["launches_per_replay"]["mrf_step"] * r["replays"]
+                                 for r in voc.values()))
+    by_kernel = {name: sum(n for key, n in shapes.items() if key[0] == name)
+                 for name in BENCH_KERNELS}
+    if by_kernel != launches:
+        raise AssertionError(f"tools path: launches {launches}, by shape {by_kernel}")
+    return launches, shapes
+
+
+def tools_path(dev, mcfg, hcfg, seed, root, step_ns, base):
+    """The tools phase: `cli.trace_train_step`, `cli.profile_vocoder` and
+    `cli.train_mfu_sweep` as a user runs them (the counts set to 0 just
+    before and read just after; the sweep's children against `base`, the
+    first metrics of the `base` variant's call), then every kernel at every
+    shape the in-process tools gave it, as path "tools"."""
+    from matcha_tpu_torch import bench
+
+    for w in bench.COUNTED.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    trace_res = trace_train_step_run(dev, mcfg, root)
+    voc = profile_vocoder_run(dev, hcfg, root)
+    sweep = sweep_run(mcfg, root, base)
+    ticks = wrapper_counts_all()
+    seconds = time.perf_counter() - t0
+    launches, shapes = tools_accounting(mcfg, hcfg, trace_res, voc)
+    kernel_rows = time_bench_kernels(dev, mcfg, hcfg, seed, shapes, step_ns, TOOLS_REPS, "tools")
+    log(f"tools path: {seconds:.1f} s of tools, {time.perf_counter() - t0:.1f} s with the kernel "
+        f"rows; launches {launches} (graph replays and the eager micro-step), wrappers ticked "
+        f"{ticks}")
+    return {"trace_train_step": trace_res, "profile_vocoder": voc, "sweep": sweep,
+            "launches": launches, "wrapper_ticks": ticks, "tools_s": seconds,
             "kernel_rows": kernel_rows}
 
 
@@ -3583,6 +3817,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from matcha_tpu_torch.models.hifigan import HiFiGANConfig
     from matcha_tpu_torch.models.matcha import MatchaConfig
+    from matcha_tpu_torch.train.trainer import METRICS
 
     dev, smi, build_s, _ = setup_card()
     mcfg, hcfg = MatchaConfig(), HiFiGANConfig()  # full width: Matcha-TTS and HiFi-GAN v1
@@ -3647,6 +3882,11 @@ def main(argv=None) -> int:
         bench_res = bench_path(dev, mcfg, hcfg, args.seed, step_ns)
         for name, rs in bench_res["kernel_rows"].items():
             rows[name].extend(rs)
+        (train_row,) = [e for e in bench_res["record"] if e["row"] == "train"]
+        base = dict(zip(METRICS, train_row["first_metrics"]))
+        tools = tools_path(dev, mcfg, hcfg, args.seed, Path(tmp), step_ns, base)
+        for name, rs in tools["kernel_rows"].items():
+            rows[name].extend(rs)
     serve_work = " and ".join(f"{req} (batch {b}, budget {budget})"
                               for req, b, budget, _ in requests) + ", bf16, HiFi-GAN, CUDA graphs"
     serve_gl_work = " and ".join(f"{req} (batch {b}, budget {budget})"
@@ -3685,6 +3925,11 @@ def main(argv=None) -> int:
                        "at batch 128 bf16 (K 1 and 8, Ty 512), the bf16 HiFi-GAN single sentence "
                        "at 50 steps, 256 serve() requests from 32 clients (groups up to 16, "
                        "budget 256)")
+    tools_work = (f"cli.trace_train_step at batch 128 bf16 (Tx 64, Ty 512): 4 dispatches of "
+                  f"K 8 (one captured, a warm-up, two traced) and two eager micro-steps (one "
+                  f"traced with attribution); cli.profile_vocoder at {TOOLS_VOC[0]} x "
+                  f"{TOOLS_VOC[1]} frames in bf16 and f32, 14 CUDA graph replays each (the "
+                  f"sweep's children, other processes, are checked apart)")
     line = kernel_line(rows, errs, {"serve": engine["launches"], "serve_gl": engine_gl["launches"],
                                     "serve16": serve16["launches"],
                                     "train": training["launches"],
@@ -3694,13 +3939,14 @@ def main(argv=None) -> int:
                                     "vocoder_report": report["launches"],
                                     "bench_mas": {"mas": entry["bench_mas"]["launches"]},
                                     "parallel": par["launches"],
-                                    "bench": bench_res["launches"]},
+                                    "bench": bench_res["launches"],
+                                    "tools": tools["launches"]},
                        {"serve": serve_work, "serve_gl": serve_gl_work,
                         "serve16": serve16_work, "train": train_work,
                         "vocoder": vocoder_work, "generate": generate_work,
                         "generate_gl": generate_gl_work, "vocoder_report": report_work,
                         "bench_mas": bench_work, "parallel": par_work,
-                        "bench": bench_path_work})
+                        "bench": bench_path_work, "tools": tools_work})
     for k in line["kernels"]:
         if k["name"] == "mas":
             k["chain_step_ns"] = step_ns
@@ -3715,7 +3961,8 @@ def main(argv=None) -> int:
          "parallel_training": {k: v for k, v in par["training"].items() if k != "batches"},
          "e2e": e2e, "kernel_rows": rows,
          "attention_per_call": per_call, "mrf_per_stage": mrf_stages,
-         "bench": {k: v for k, v in bench_res.items() if k != "kernel_rows"}, **line},
+         "bench": {k: v for k, v in bench_res.items() if k != "kernel_rows"},
+         "tools": {k: v for k, v in tools.items() if k != "kernel_rows"}, **line},
         indent=1))
     log(line)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -426,6 +426,8 @@ def bench_train(batch=16, tx=64, ty=512, k=8, iters=6, precision="fp32", out_siz
     card) over K copies of the batch, each dispatch ended by a
     synchronisation; reference hyperparameters, 2-step accumulation.
     `profile_dir`: a torch.profiler trace of one more K dispatch goes there.
+    `record`: an entry with the micro-steps, the graphs' launches and the
+    first micro-step's metrics row (`trainer.METRICS`).
 
     Returns (ms a K = 1 dispatch, ms a micro-step at K, K, products of one
     micro-step's forward and backward at `batch`)."""
@@ -445,7 +447,8 @@ def bench_train(batch=16, tx=64, ty=512, k=8, iters=6, precision="fp32", out_siz
             def dispatch(n):
                 return trainer.dispatch([(b, next(index)) for _ in range(n)], epoch=0)
 
-            for _ in range(accumulate_steps):  # each emit pattern's graph
+            first = dispatch(1)[0].tolist()  # the first micro-step's metrics (`METRICS`)
+            for _ in range(accumulate_steps - 1):  # each other emit pattern's graph
                 dispatch(1)
             t_single = _median_time(lambda: dispatch(1), iters, device)
             dispatch(k)
@@ -457,7 +460,8 @@ def bench_train(batch=16, tx=64, ty=512, k=8, iters=6, precision="fp32", out_siz
                 steps = sum(kk * n for kk, n in trainer.replays.items())
                 record.append({"row": "train", "batch": batch, "tx": tx, "ty": ty,
                                "precision": precision, "out_size": out_size,
-                               "micro_steps": steps, "launches": dict(trainer.launches)})
+                               "micro_steps": steps, "launches": dict(trainer.launches),
+                               "first_metrics": first})
         finally:
             trainer.logger.close()
     step_flops = batch * train_step_flops(mcfg, tx, ty, out_size)

@@ -30,14 +30,25 @@ def synchronize(tree):
     return tree
 
 
-def start_trace(device=None) -> torch.profiler.profile:
+def start_trace(device=None, record_shapes: bool = False, warmup=None) -> torch.profiler.profile:
     """Start a torch.profiler trace of the host, and of the card when `device`
-    is a CUDA device."""
+    is a CUDA device; `record_shapes`: each op's input shapes too. The tracer
+    starts in a warm-up step whose events are discarded, where `warmup` (a
+    callable) runs and the device is waited for: a trace started on a busy
+    process can lose its first kernels (12 of 4 x 36 K2 launches of a
+    generator graph on the H100), and the warm-up keeps that out of the record."""
+    cuda = device is not None and torch.device(device).type == "cuda"
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if device is not None and torch.device(device).type == "cuda":
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(activities=activities, record_shapes=record_shapes,
+                                  schedule=torch.profiler.schedule(wait=0, warmup=1, active=1))
     prof.start()
+    if warmup is not None:
+        warmup()
+    if cuda:
+        torch.cuda.synchronize(device)
+    prof.step()  # record from here
     return prof
 
 
@@ -54,13 +65,14 @@ def stop_trace(prof: torch.profiler.profile, log_dir, device=None) -> Path:
 
 
 @contextlib.contextmanager
-def trace(log_dir, device=None):
-    """Trace the block into a Chrome trace in `log_dir`:
+def trace(log_dir, device=None, record_shapes: bool = False, warmup=None):
+    """Trace the block into a Chrome trace in `log_dir` (`start_trace`'s
+    arguments):
 
         with trace("/tmp/trace", device="cuda"):
             run_step(...)
     """
-    prof = start_trace(device)
+    prof = start_trace(device, record_shapes, warmup)
     try:
         yield prof
     finally:

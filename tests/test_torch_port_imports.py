@@ -19,7 +19,8 @@ names = ["matcha_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 # the scripts beside the package: the chip check and the examples
-scripts = ["chip_smoke.py", "examples/demo_torch.py", "examples/demo_serving_torch.py"]
+scripts = ["chip_smoke.py", "examples/demo_torch.py", "examples/demo_serving_torch.py",
+           "examples/walkthrough_text_torch.py", "examples/walkthrough_mel_torch.py"]
 for path in scripts:
     spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -38,7 +39,9 @@ new = {"matcha_tpu_torch.nn.dropout", "matcha_tpu_torch.data.ljspeech",
        "matcha_tpu_torch.parallel", "matcha_tpu_torch.parallel.mesh",
        "matcha_tpu_torch.parallel.sharding", "matcha_tpu_torch.parallel.ring_attention",
        "matcha_tpu_torch.cli.bench_scaling", "matcha_tpu_torch.bench",
-       "matcha_tpu_torch.cli.serve_load_curve", "matcha_tpu_torch.cli.trace_table"}
+       "matcha_tpu_torch.cli.serve_load_curve", "matcha_tpu_torch.cli.trace_table",
+       "matcha_tpu_torch.cli.trace_train_step", "matcha_tpu_torch.cli.profile_vocoder",
+       "matcha_tpu_torch.cli.train_mfu_sweep"}
 assert new <= set(names), new - set(names)
 print("MODULES", len(names))
 print("LEAKED", leaked)
@@ -52,7 +55,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "LEAKED []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES ")[1].split()[0])
     assert n_modules >= 20  # every module of the package, not just its root
-    assert "SCRIPTS 3" in out.stdout, out.stdout
+    assert "SCRIPTS 5" in out.stdout, out.stdout
 
 
 _NO_CUDA = r"""
@@ -68,7 +71,8 @@ from matcha_tpu_torch.serve import ServeConfig, TTSEngine
 from matcha_tpu_torch.train.trainer import TrainConfig, Trainer
 from matcha_tpu_torch.train.vocoder import VocoderTrainConfig, VocoderTrainer
 from matcha_tpu_torch import bench
-from matcha_tpu_torch.cli import (bench_mas, bench_scaling, generate, serve, serve_load_curve,
+from matcha_tpu_torch.cli import (bench_mas, bench_scaling, generate, profile_vocoder, serve,
+                                  serve_load_curve, trace_train_step, train_mfu_sweep,
                                   train_vocoder, vocoder_report)
 from matcha_tpu_torch.audio.mel import MelConfig
 from matcha_tpu_torch.parallel import make_mesh
@@ -102,6 +106,9 @@ for call in (lambda: resolve_device(None),
              lambda: bench.main(["--train-sweep", "--out", "unused-ckpt-dir/sweep.json"]),
              lambda: bench.bench_synthesis(batch=1, ty=16),
              lambda: serve_load_curve.main(["--out", "unused-ckpt-dir/curve.json"]),
+             lambda: trace_train_step.main(["unused-ckpt-dir/trace", "--eager-attribution"]),
+             lambda: profile_vocoder.main(["--trace-dir", "unused-ckpt-dir/voc"]),
+             lambda: train_mfu_sweep.main(["--out", "unused-ckpt-dir/sweep.json"]),
              lambda: demo_torch.main(["--out", "unused-ckpt-dir"]),
              lambda: demo_serving_torch.main(["--out", "unused-ckpt-dir"])):
     try:
